@@ -10,15 +10,22 @@ Phases (any failure exits non-zero):
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA
      versions, and the float32 matmul settings (TF32 off);
   2. build every CUDA source of the port with ``nvcc``;
-  3. the complex-split matmul kernel (K1) against its plain PyTorch version
-     at the main path's shape (2048x2048 @ 2048x2048) and a ragged one,
-     with its time, the plain version's, one library call's
-     (complex64 ``torch.matmul``) and the bound (one complex product,
-     8*M*N*K flop, at the f32 peak: the split is exact);
+  3. the complex-split matmul (K1), each of its two kernels against the
+     plain PyTorch version of its route: the tensor-core kernel against
+     the bf16-operand plain version and the complex128 product at the main
+     path's shape (2048x2048 @ 2048x2048, the DFT matrix as B) and a ragged
+     one, the f32-FMA kernel against the f32 plain version at a shape that
+     takes that route, and a sum of 2048 equal terms (the mean mode); then
+     the times at 2048³ of both kernels, both plain versions and one
+     library call (complex64 ``torch.matmul``), with two bounds: the
+     twelve split products on the bf16 tensor cores (24*M*N*K flop, the
+     ``bound_ms`` of the result line) and one complex product on f32 FMAs
+     (8*M*N*K flop);
   4. the main path: the flagship coupled model at 2048² through
      ``CoupledModel.Model`` in the configuration that runs K1 (matmul-DFT,
      f32, 'split' precision, dense swap formulation), 2 warm-up steps and
-     3 timed ones, with K1's launch count per step;
+     3 timed ones, with K1's launch count per step, every launch on the
+     tensor-core route;
   5. the same model in f64 on cuFFT (``backend='native'``), 2 steps, held
      against the f32 K1 run; and in f32 on cuFFT, the one-card reference
      of the sharded run, with its steps per second;
@@ -35,8 +42,9 @@ Phases (any failure exits non-zero):
      with the default ``all_to_all_single`` route; 2 warm-up and 3 timed
      steps each, K2's launch count per step, the gathered state against
      the one-card f32 run and the f64 run, and the two routes against each
-     other. Where every rank has its own card it also times NCCL's
-     ``all_to_all_single`` at K2's shape (``library_ms``).
+     other; K2's time in that layout, both directions. Where every rank
+     has its own card it also times NCCL's ``all_to_all_single`` on the
+     forward's and the inverse's blocks (``library_ms``).
 
 The line before the last holds the card's name and power limit; the one
 before it the kernels' JSON record; the last line is
@@ -68,8 +76,15 @@ K1_TRANSFORM = dict(use_pallas=True, formulation="swap", factors=None,
                     half_factors=None)
 # H100 SXM published peaks at 700 W (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12    # f32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12      # HBM3
-K1_RTOL = 1e-5            # max-abs error / max|ref| (f32 sum order)
+K1_RTOL = 1e-5            # f32-FMA route vs the f32 plain version, max-abs
+                          # error / max|ref| (f32 sums in another order)
+K1_TC_RTOL = 2e-6         # tensor-core route vs the bf16 plain version (the
+                          # same rounded operands, f32 sums in another order)
+K1_EXACT_RTOL = 2e-5      # tensor-core route vs the complex128 product (bf16
+                          # rounding of x, x_lo, y_lo: 2^-17..2^-16 a term)
+K1_MEAN_RTOL = 2e-6       # a sum of K equal terms vs K times the term
 CROSS_RTOL = 1e-4         # an f32 run vs the f64 cuFFT run after 2 steps
 PEAK_LINK = 450e9         # NVLink, each way, per card
 NRANKS = 4
@@ -128,8 +143,8 @@ def flagship(CoupledModel, ic, nx=NX, **kw):
     return m
 
 
-def k1_record(torch, mm, M, K, N, seed, dft, reps):
-    """K1 against its plain version at one shape; times at that shape."""
+def k1_planes(torch, mm, M, K, N, seed, dft):
+    """Seeded K1 operands on the card: the six f32 planes, and B's two."""
     rng = np.random.default_rng(seed)
     dev = "cuda"
     ar = torch.as_tensor(rng.standard_normal((M, K), np.float32), device=dev)
@@ -141,56 +156,114 @@ def k1_record(torch, mm, M, K, N, seed, dft, reps):
         B = rng.standard_normal((K, N)) + 1j * rng.standard_normal((K, N))
     br = torch.as_tensor(B.real.astype(np.float32), device=dev)
     bi = torch.as_tensor(B.imag.astype(np.float32), device=dev)
-    brh, brl = mm.mask_split(br)
-    bih, bil = mm.mask_split(bi)
-    args = (ar, ai, brh, brl, bih, bil)
+    return (ar, ai) + mm.mask_split(br) + mm.mask_split(bi), br, bi
 
+
+def k1_record(torch, mm, M, K, N, seed, dft, reps):
+    """K1 at one shape against the plain version of the route the shape
+    takes; times of both routes at that shape where ``reps``."""
+    args, br, bi = k1_planes(torch, mm, M, K, N, seed, dft)
+    ar, ai = args[:2]
+    route = mm.route(M, N, K)
+    count = mm.csplit_matmul
+    before = (count.launches, count.launches_tc, count.launches_f32)
     re, im = mm.csplit_matmul(*args)
     torch.cuda.synchronize()
-    rre, rim = mm.csplit_matmul_ref(*args)
+    after = (count.launches, count.launches_tc, count.launches_f32)
+    want = (1, 1, 0) if route == "tc" else (1, 0, 1)
+    check(tuple(y - x for x, y in zip(before, after)) == want,
+          f"K1 at {(M, K, N)}: route {route!r} expected, counters moved "
+          f"from {before} to {after}")
+    oracle, rtol = ((mm.csplit_matmul_ref_bf16, K1_TC_RTOL) if route == "tc"
+                    else (mm.csplit_matmul_ref, K1_RTOL))
+    rre, rim = oracle(*args)
     scale = max(rre.abs().max().item(), rim.abs().max().item())
     err = max((re - rre).abs().max().item(), (im - rim).abs().max().item())
     exact = (torch.complex(ar.double(), ai.double())
              @ torch.complex(br.double(), bi.double()))
+    xscale = exact.abs().max().item()
     err_c128 = max((re.double() - exact.real).abs().max().item(),
                    (im.double() - exact.imag).abs().max().item())
-    log(f"K1 {M}x{K} @ {K}x{N}: max_abs_err={err:.3e} vs plain "
-        f"(max|ref|={scale:.3e}, rel {err / scale:.3e}); "
-        f"vs complex128 {err_c128:.3e}")
-    check(err <= K1_RTOL * scale,
+    log(f"K1 {M}x{K} @ {K}x{N}, route {route}: max_abs_err={err:.3e} vs "
+        f"{oracle.__name__} (max|ref|={scale:.3e}, rel {err / scale:.3e}, "
+        f"limit {rtol}); vs complex128 {err_c128:.3e} "
+        f"(rel {err_c128 / xscale:.3e})")
+    check(err <= rtol * scale,
           f"K1 disagrees with its plain version at {(M, K, N)}: "
-          f"{err:.3e} > {K1_RTOL} * {scale:.3e}")
+          f"{err:.3e} > {rtol} * {scale:.3e}")
+    if route == "tc":
+        check(err_c128 <= K1_EXACT_RTOL * xscale,
+              f"K1 is off the complex128 product at {(M, K, N)}: "
+              f"{err_c128:.3e} > {K1_EXACT_RTOL} * {xscale:.3e}")
+        b = mm.prepare_b(*args[2:])
+        pre, pim = mm.csplit_matmul_prepared(ar, ai, b)
+        check(torch.equal(pre, re) and torch.equal(pim, im),
+              "the prepared call and the six-plane call differ")
     if not reps:
         return None
 
+    check(route == "tc", "the timed shape is the main path's")
     a_c = torch.complex(ar, ai)
     b_c = torch.complex(br, bi)
-    kern = lambda: mm.csplit_matmul(*args)
-    plain = lambda: mm.csplit_matmul_ref(*args)
+    kern = lambda: mm.csplit_matmul_prepared(ar, ai, b)  # the main path's call
+    fma = lambda: mm.csplit_matmul_f32(*args)  # the first design, same run
+    plain = lambda: mm.csplit_matmul_ref_bf16(*args)
+    plain32 = lambda: mm.csplit_matmul_ref(*args)
     # in turns: plain, kernel, kernel, plain
     p1 = cuda_ms(torch, plain, reps)
-    k1 = cuda_ms(torch, kern, reps)
-    k2 = cuda_ms(torch, kern, reps)
+    q1 = cuda_ms(torch, plain32, reps)
+    k1 = cuda_ms(torch, kern, 5 * reps)
+    f1 = cuda_ms(torch, fma, reps)
+    f2 = cuda_ms(torch, fma, reps)
+    k2 = cuda_ms(torch, kern, 5 * reps)
+    q2 = cuda_ms(torch, plain32, reps)
     p2 = cuda_ms(torch, plain, reps)
     lib = cuda_ms(torch, lambda: a_c @ b_c, reps)
-    # The split is exact (hi + lo = x), so the function is one complex
-    # product: 4 real products, 8*M*N*K flop. The kernel's design does 12
-    # real products (24*M*N*K flop); that count is printed, not the bound.
-    flops = 8.0 * M * N * K
-    design_flops = 24.0 * M * N * K
+    # The function is the twelve split products with bf16 operands and f32
+    # sums, 24*M*N*K flop: the least the card can take for it is that count
+    # at the bf16 tensor-core peak. One complex product in f32 FMAs
+    # (8*M*N*K flop, exact split) was the bound of the first design.
     nbytes = (2 * M * K + 4 * K * N + 2 * M * N) * 4.0
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    bound_ms = max(t_ops, t_bytes) * 1e3
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    t_bytes = nbytes / PEAK_BYTES
+    t_tc = 24.0 * M * N * K / PEAK_BF16_FLOPS
+    t_f32 = 8.0 * M * N * K / PEAK_F32_FLOPS
+    bound_ms = max(t_tc, t_bytes) * 1e3
+    bound_by = "operations" if t_tc >= t_bytes else "bytes"
     ms = 0.5 * (k1 + k2)
-    log(f"K1 timing {M}x{K}x{N}: kernel {k1:.4f}/{k2:.4f} ms, plain "
-        f"{p1:.4f}/{p2:.4f} ms, complex64 torch.matmul {lib:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}, {flops:.3e} flop; "
-        f"{100 * bound_ms / ms:.1f}% of it reached); the design's own "
-        f"{design_flops:.3e} flop run at "
-        f"{design_flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    log(f"K1 timing {M}x{K}x{N}: tensor-core kernel {k1:.4f}/{k2:.4f} ms, "
+        f"f32-FMA kernel {f1:.4f}/{f2:.4f} ms, bf16 plain {p1:.4f}/{p2:.4f} "
+        f"ms, f32 plain {q1:.4f}/{q2:.4f} ms, complex64 torch.matmul "
+        f"{lib:.4f} ms")
+    log(f"K1 bounds {M}x{K}x{N}: on the tensor cores {bound_ms:.4f} ms "
+        f"({bound_by}: {24.0 * M * N * K:.3e} flop at the bf16 peak; bytes "
+        f"{1e3 * t_bytes:.4f} ms), {100 * bound_ms / ms:.1f}% of it reached, "
+        f"{24.0 * M * N * K / (ms * 1e-3) / 1e12:.1f} TFLOP/s; on f32 FMAs "
+        f"{1e3 * t_f32:.4f} ms ({8.0 * M * N * K:.3e} flop at the f32 peak), "
+        f"the f32-FMA kernel at {100 * 2e3 * t_f32 / (f1 + f2):.1f}% of it")
     return dict(max_abs_err=err, ms=ms, plain_ms=0.5 * (p1 + p2),
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib)
+
+
+def k1_mean_mode(torch, mm):
+    """Column 0 of a constant A times the DFT matrix: K equal terms, the
+    mean mode of a near-uniform field, on the tensor-core route."""
+    K = NX
+    c = np.float32(5 * U0 / np.sqrt(2))
+    a = torch.full((64, K), float(c), dtype=torch.float32, device="cuda")
+    idx = np.arange(K)
+    F = np.exp(-2j * np.pi * np.outer(idx, idx) / K)
+    planes = (mm.mask_split(torch.as_tensor(F.real.astype(np.float32),
+                                            device="cuda"))
+              + mm.mask_split(torch.as_tensor(F.imag.astype(np.float32),
+                                              device="cuda")))
+    check(mm.route(64, K, K) == "tc", "the mean-mode check is the tc route's")
+    re, im = mm.csplit_matmul(a, a, *planes)
+    exact = K * float(c)
+    err = max((p[:, 0].double() - exact).abs().max().item() / exact
+              for p in (re, im))
+    log(f"K1 mean mode, {K} equal terms: off by {err:.3e} of the sum "
+        f"(limit {K1_MEAN_RTOL})")
+    check(err <= K1_MEAN_RTOL, "K1's sum of same-sign terms drifts")
 
 
 def k2_bound_ms(nbytes_rank, cards):
@@ -350,7 +423,10 @@ def _sharded_rank(rank, port, route, outdir):
     z = torch.zeros(shape, dtype=torch.complex64, device=mesh.device)
     z += rank
     tr = m.kernel.tr
-    lib_ms = k2_ms = None
+    zi = torch.zeros((K2_LEAD, NRANKS * K2_R, K2_W), dtype=torch.complex64,
+                     device=mesh.device)
+    zi += rank
+    lib_ms = lib_inv_ms = k2_ms = k2_inv_ms = None
     reps = 20
 
     def timed(fn):
@@ -366,18 +442,24 @@ def _sharded_rank(rank, port, route, outdir):
     if route == "k2":
         launches = (fwd.launches, inv.launches)
         k2_ms = timed(lambda: fwd(z, tr._group, chunks=2))
+        k2_inv_ms = timed(lambda: inv(zi, tr._group, chunks=2))
         fwd.launches, inv.launches = launches  # timing is not the main path
     elif backend == "nccl":
         send = z.reshape(K2_LEAD, K2_R, NRANKS, K2_W).movedim(-2, 0).contiguous()
         recv = torch.empty_like(send)
         lib_ms = timed(lambda: dist.all_to_all_single(recv, send))
+        # the inverse's blocks: row block r of each field goes to rank r
+        send = zi.reshape(K2_LEAD, NRANKS, K2_R, K2_W).movedim(-3, 0).contiguous()
+        lib_inv_ms = timed(lambda: dist.all_to_all_single(recv, send))
     if rank == 0:
         np.savez(os.path.join(outdir, f"{route}.npz"), q=q, phi=phi, ke=ke,
                  wall=wall, t_build=t_build, n_set=n_set, n_warm=n_warm,
                  n_timed=n_timed, finite=finite, backend=backend,
                  cpu_calls=fwd.cpu_calls + inv.cpu_calls,
                  k2_ms=np.nan if k2_ms is None else k2_ms,
+                 k2_inv_ms=np.nan if k2_inv_ms is None else k2_inv_ms,
                  lib_ms=np.nan if lib_ms is None else lib_ms,
+                 lib_inv_ms=np.nan if lib_inv_ms is None else lib_inv_ms,
                  device=str(mesh.device))
     if tr._group is not None:
         tr._group.close()
@@ -442,18 +524,21 @@ def sharded_phase(torch, refs):
         "y-FFTs run in other batch shapes)")
     check(max(dq, dphi) <= ROUTE_RTOL, "the two routes give different states")
     k2_ms, lib_ms = float(a["k2_ms"]), float(b["lib_ms"])
-    log(f"K2 forward in the {NRANKS}-process layout, {K2_LEAD} fields: "
-        f"{k2_ms:.4f} ms per launch (host clock, 20 launches)")
+    k2_inv_ms, lib_inv_ms = float(a["k2_inv_ms"]), float(b["lib_inv_ms"])
+    log(f"K2 in the {NRANKS}-process layout, {K2_LEAD} fields: forward "
+        f"{k2_ms:.4f} ms, inverse {k2_inv_ms:.4f} ms per launch (host "
+        "clock, 20 launches)")
     if math.isnan(lib_ms):
-        lib_ms = None
+        lib_ms = lib_inv_ms = None
         log(f"library_ms is null: NCCL's all_to_all_single needs a card per "
             f"rank, and {NRANKS} ranks share {ncards} card(s) here (the "
             "default route ran on gloo through the host)")
     else:
-        log(f"NCCL all_to_all_single at the same shape: {lib_ms:.4f} ms")
+        log(f"NCCL all_to_all_single at the same shape: forward's blocks "
+            f"{lib_ms:.4f} ms, inverse's blocks {lib_inv_ms:.4f} ms")
     launches = tuple(int(x) + int(y) + int(z) for x, y, z in
                      zip(a["n_set"], a["n_warm"], a["n_timed"]))
-    return launches, lib_ms, k2_ms
+    return launches, (lib_ms, lib_inv_ms), (k2_ms, k2_inv_ms)
 
 
 def main(argv=None) -> int:
@@ -521,10 +606,14 @@ def main(argv=None) -> int:
 
     # -- 3. K1 against its plain version -------------------------------------
     rec = k1_record(torch, mm, NX, NX, NX, seed=1, dft=True, reps=10)
-    k1_record(torch, mm, 520, 384, 264, seed=2, dft=False, reps=0)
+    k1_record(torch, mm, 520, 384, 264, seed=2, dft=False, reps=0)  # ragged
+    k1_record(torch, mm, 130, 17, 65, seed=3, dft=False, reps=0)  # f32 route
+    k1_mean_mode(torch, mm)
 
     # -- 4. the main path ------------------------------------------------------
     mm.csplit_matmul.launches = 0
+    mm.csplit_matmul.launches_tc = 0
+    mm.csplit_matmul.launches_f32 = 0
     mm.csplit_matmul.cpu_calls = 0
     t0 = time.perf_counter()
     m = flagship(CoupledModel, ic, backend="mxu", dtype=np.float32,
@@ -553,6 +642,13 @@ def main(argv=None) -> int:
     check(n_warm == K1_PER_STEP * WARM_STEPS
           and n_timed == K1_PER_STEP * TIMED_STEPS,
           f"expected {K1_PER_STEP} K1 launches per step")
+    check(mm.csplit_matmul.launches_tc == launches
+          and mm.csplit_matmul.launches_f32 == 0,
+          f"the main path's {launches} K1 launches did not all take the "
+          f"tensor-core route ({mm.csplit_matmul.launches_tc} did, "
+          f"{mm.csplit_matmul.launches_f32} took the f32-FMA route)")
+    log(f"all {launches} K1 launches of the main path took the tensor-core "
+        "route")
     q, phi = m.q, m.phi
     check(np.isfinite(q).all() and np.isfinite(phi).all()
           and math.isfinite(ke_end), "non-finite state after the main path")
@@ -607,12 +703,11 @@ def main(argv=None) -> int:
     k2_recs, ncards = k2_phase(torch, a2a)
 
     # -- 7. the sharded main path ------------------------------------------------
-    (n_fwd, n_inv), lib_ms, _ = sharded_phase(torch, refs)
+    (n_fwd, n_inv), (lib_ms, lib_inv_ms), _ = sharded_phase(torch, refs)
     k2_recs["all_to_all_fwd"]["launches"] = n_fwd
     k2_recs["all_to_all_inv"]["launches"] = n_inv
-    # NCCL moves the forward transpose's bytes; the inverse moves as many
-    for r in k2_recs.values():
-        r["library_ms"] = lib_ms
+    k2_recs["all_to_all_fwd"]["library_ms"] = lib_ms
+    k2_recs["all_to_all_inv"]["library_ms"] = lib_inv_ms
 
     order = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")

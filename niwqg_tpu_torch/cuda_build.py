@@ -57,21 +57,28 @@ def build_all(names=None) -> dict:
     memory, spills) is kept beside each library as ``<lib>.log``."""
     names = sources() if names is None else list(names)
     paths = {n: library_path(n) for n in names}
-    for n, path in paths.items():
+    procs = {}
+    for n, path in paths.items():  # one nvcc per source, all started together
         if os.path.exists(path):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.tmp{os.getpid()}"
-        proc = subprocess.run(
+        procs[n] = (tmp, subprocess.Popen(
             [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
              os.path.join(CSRC_DIR, n + ".cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {n}.cu "
-                               f"(exit {proc.returncode}):\n{proc.stdout}")
-        with open(path + ".log", "w") as fh:
-            fh.write(proc.stdout)
-        os.replace(tmp, path)
+            failed.append(f"nvcc failed for {n}.cu "
+                          f"(exit {proc.returncode}):\n{out}")
+            continue
+        with open(paths[n] + ".log", "w") as fh:
+            fh.write(out)
+        os.replace(tmp, paths[n])
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return paths
 
 

@@ -3,13 +3,32 @@
 ``csplit_matmul(ar, ai, brh, brl, bih, bil) -> (out_re, out_im)`` computes
 ``(ar + i*ai) @ B`` with ``B`` pre-split into the f32 planes ``re_hi,
 re_lo, im_hi, im_lo`` — the contract of the TPU kernel
-``niwqg_tpu/ops/pallas_mm.py:csplit_matmul``. On a CUDA tensor it launches
-the hand-written Hopper kernel ``csrc/csplit_mm.cu`` (the source says what
-bounds it and why its first design is plain f32 FMAs); on a CPU tensor it
-runs :func:`csplit_matmul_ref`. There is no fallback between the two: a
-CUDA call that the kernel refuses raises.
+``niwqg_tpu/ops/pallas_mm.py:csplit_matmul``. Each real product is formed
+as ``x@y_lo + x_lo@y_hi + x_hi@y_hi``.
 
-``csplit_matmul.launches`` counts kernel launches and nothing else;
+On a CUDA tensor it launches one of the two hand-written Hopper kernels of
+``csrc/csplit_mm.cu``, chosen by :func:`route` from the shape alone:
+
+``"tc"``
+    the tensor-core kernel (bf16 ``wgmma``, f32 sums), for the shapes the
+    main path sends: ``K >= 256``, ``N >= 256`` and ``M``, ``K``, ``N``
+    multiples of 8. Its operands ``x``, ``x_lo`` and ``y_lo`` are rounded to
+    bf16 as on the TPU's matrix unit, so it is held to
+    :func:`csplit_matmul_ref_bf16` (tightly) and to the exact product at
+    about 1e-5 of the largest output.
+``"f32"``
+    the f32-FMA kernel, for every other shape (any ``M, N, K >= 1``), held
+    to :func:`csplit_matmul_ref`.
+
+The choice is no fallback: a launch that is refused, or a build that
+fails, raises. On a CPU tensor the wrapper runs :func:`csplit_matmul_ref`.
+
+The B planes of a transform are constants: :func:`prepare_b` converts them
+to bf16 once, and :func:`csplit_matmul_prepared` takes its result. The
+six-plane call prepares on the fly.
+
+``csplit_matmul.launches`` counts kernel launches and nothing else
+(``launches_tc`` and ``launches_f32`` per route);
 ``csplit_matmul.cpu_calls`` counts the calls served on the host.
 """
 
@@ -33,83 +52,197 @@ def mask_split(x: torch.Tensor):
     return hi, x - hi
 
 
+def _smm(x, xh, xl, yh, yl):
+    return x @ yl + xl @ yh + xh @ yh
+
+
 def csplit_matmul_ref(ar, ai, brh, brl, bih, bil):
     """Plain PyTorch version: the 12 split products as f32 matmuls, in the
     TPU kernel's order of summation."""
     arh, arl = mask_split(ar)
     aih, ail = mask_split(ai)
-
-    def smm(x, xh, xl, yh, yl):
-        return x @ yl + xl @ yh + xh @ yh
-
-    re = smm(ar, arh, arl, brh, brl) - smm(ai, aih, ail, bih, bil)
-    im = smm(ar, arh, arl, bih, bil) + smm(ai, aih, ail, brh, brl)
+    re = _smm(ar, arh, arl, brh, brl) - _smm(ai, aih, ail, bih, bil)
+    im = _smm(ar, arh, arl, bih, bil) + _smm(ai, aih, ail, brh, brl)
     return re, im
 
 
-def _check(ar, ai, brh, brl, bih, bil):
-    ts = (ar, ai, brh, brl, bih, bil)
-    for t in ts:
+def _bf16_round(x):
+    """f32 rounded to bf16 (nearest even), held in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def csplit_matmul_ref_bf16(ar, ai, brh, brl, bih, bil):
+    """Plain version of the tensor-core kernel: the same 12 products with
+    ``x``, ``x_lo`` and ``y_lo`` rounded to bf16 (the hi parts are bf16
+    already), every product and sum in f32."""
+    arh, arl = mask_split(ar)
+    aih, ail = mask_split(ai)
+    ar, arl, ai, ail, brl, bil = (_bf16_round(t) for t in
+                                  (ar, arl, ai, ail, brl, bil))
+    re = _smm(ar, arh, arl, brh, brl) - _smm(ai, aih, ail, bih, bil)
+    im = _smm(ar, arh, arl, bih, bil) + _smm(ai, aih, ail, brh, brl)
+    return re, im
+
+
+def route(M: int, N: int, K: int) -> str:
+    """Which kernel a CUDA call of this shape launches: ``"tc"`` under the
+    JAX package's eligibility rule (K >= 256, N >= 256, rows % 8 == 0) where
+    the bulk loads can also be aligned (K % 8 == 0, N % 8 == 0), else
+    ``"f32"``."""
+    if K >= 256 and N >= 256 and M % 8 == 0 and K % 8 == 0 and N % 8 == 0:
+        return "tc"
+    return "f32"
+
+
+class PreparedB:
+    """The four B planes of a transform, ready for either kernel: the f32
+    planes as given (``planes``) and one ``(4, K, N)`` bf16 tensor
+    (``bf16``: re_hi, re_lo, im_hi, im_lo; hi exact, lo rounded)."""
+
+    __slots__ = ("planes", "bf16")
+
+    def __init__(self, planes, bf16):
+        self.planes = planes
+        self.bf16 = bf16
+
+    @property
+    def shape(self):
+        return tuple(self.planes[0].shape)
+
+
+def _check_planes(planes, name):
+    """Equal-shaped 2-D f32 planes on one device."""
+    first = planes[0]
+    for t in planes:
         if t.dtype != torch.float32:
             raise TypeError(f"csplit_matmul takes float32, got {t.dtype}")
         if t.dim() != 2:
             raise ValueError(f"csplit_matmul takes 2-D planes, got {t.dim()}-D")
-        if t.device != ar.device:
+        if t.device != first.device:
             raise ValueError("csplit_matmul operands lie on different devices")
+        if t.shape != first.shape:
+            raise ValueError(f"{name} planes differ in shape: "
+                             f"{tuple(t.shape)} != {tuple(first.shape)}")
+
+
+def prepare_b(brh, brl, bih, bil) -> PreparedB:
+    """Convert the four f32 B planes ``(K, N)`` once for many products."""
+    planes = (brh, brl, bih, bil)
+    _check_planes(planes, "B")
+    return PreparedB(planes, torch.stack(planes).to(torch.bfloat16))
+
+
+def _check(ar, ai, planes, need_cuda=None):
+    """Validate the six planes; returns ``(M, N, K)``. ``need_cuda`` names
+    a function that launches a kernel whatever the device."""
+    _check_planes((ar, ai), "A")
+    _check_planes(planes, "B")
+    if planes[0].device != ar.device:
+        raise ValueError("csplit_matmul operands lie on different devices")
     M, K = ar.shape
-    N = brh.shape[1]
-    if ai.shape != (M, K):
-        raise ValueError(f"ai {tuple(ai.shape)} != ar {(M, K)}")
-    for t in (brh, brl, bih, bil):
-        if t.shape != (K, N):
-            raise ValueError(f"B plane {tuple(t.shape)} != {(K, N)}")
+    if planes[0].shape[0] != K:
+        raise ValueError(f"B planes {tuple(planes[0].shape)} do not continue "
+                         f"A {(M, K)}")
+    N = planes[0].shape[1]
     if min(M, N, K) == 0:
         raise ValueError(f"empty product {(M, K)} @ {(K, N)}")
+    kind = ar.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"csplit_matmul: unsupported device {ar.device}")
+    if need_cuda and kind != "cuda":
+        raise ValueError(f"{need_cuda} launches a CUDA kernel; got planes "
+                         f"on {ar.device}")
+    if kind == "cuda":
+        for t in (ar, ai) + tuple(planes):
+            if not t.is_contiguous():
+                raise ValueError(
+                    "csplit_matmul's kernel takes contiguous planes")
     return M, N, K
 
 
 def _library():
-    """The kernel's library, built at first use, with its C signatures."""
+    """The kernels' library, built at first use, with its C signatures."""
     lib = load("csplit_mm")
-    fn = lib.csplit_matmul_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.csplit_error_string.argtypes = [ctypes.c_int]
+    if lib.csplit_matmul_f32.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.csplit_matmul_f32.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
+        lib.csplit_matmul_f32.restype = i32
+        lib.csplit_matmul_tc.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+        lib.csplit_matmul_tc.restype = i32
+        lib.csplit_error_string.argtypes = [i32]
         lib.csplit_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _launch(entry, counter, ar, ai, b_ptrs, M, N, K):
+    """Launch one of the library's kernels on A's stream; raises if the
+    launch is refused."""
+    lib = _library()
+    out_re = torch.empty((M, N), device=ar.device, dtype=torch.float32)
+    out_im = torch.empty((M, N), device=ar.device, dtype=torch.float32)
+    with torch.cuda.device(ar.device):
+        stream = torch.cuda.current_stream(ar.device).cuda_stream
+        err = getattr(lib, entry)(
+            ar.data_ptr(), ai.data_ptr(), *b_ptrs, out_re.data_ptr(),
+            out_im.data_ptr(), M, N, K, stream)
+    if err != 0:
+        raise RuntimeError("csplit_matmul kernel launch failed: "
+                           + lib.csplit_error_string(err).decode())
+    csplit_matmul.launches += 1
+    setattr(csplit_matmul, counter, getattr(csplit_matmul, counter) + 1)
+    return out_re, out_im
+
+
+def csplit_matmul_f32(ar, ai, brh, brl, bih, bil):
+    """The f32-FMA kernel on CUDA planes of any shape ``M, N, K >= 1``
+    (the route of the shapes :func:`route` does not send to the tensor
+    cores; callable on its own to time it beside the other)."""
+    planes = (brh, brl, bih, bil)
+    M, N, K = _check(ar, ai, planes, need_cuda="csplit_matmul_f32")
+    return _launch("csplit_matmul_f32", "launches_f32", ar, ai,
+                   [t.data_ptr() for t in planes], M, N, K)
+
+
+def csplit_matmul_tc(ar, ai, b: PreparedB):
+    """The tensor-core kernel on CUDA planes of a shape with
+    ``route(M, N, K) == "tc"``; raises on any other."""
+    M, N, K = _check(ar, ai, b.planes, need_cuda="csplit_matmul_tc")
+    if route(M, N, K) != "tc":
+        raise ValueError(f"the tensor-core kernel does not take {(M, K)} @ "
+                         f"{(K, N)}: see route()")
+    if b.bf16.device != ar.device or not b.bf16.is_contiguous():
+        raise ValueError("prepared B planes must be contiguous on A's device")
+    return _launch("csplit_matmul_tc", "launches_tc", ar, ai,
+                   [b.bf16.data_ptr()], M, N, K)
+
+
+def _dispatch(ar, ai, planes, prepared):
+    M, N, K = _check(ar, ai, planes)
+    if ar.device.type == "cpu":
+        csplit_matmul.cpu_calls += 1
+        return csplit_matmul_ref(ar, ai, *planes)
+    if route(M, N, K) == "tc":
+        return csplit_matmul_tc(ar, ai, prepared or prepare_b(*planes))
+    return csplit_matmul_f32(ar, ai, *planes)
+
+
+def csplit_matmul_prepared(ar, ai, b: PreparedB):
+    """``(ar + i*ai) @ B`` for a :func:`prepare_b` result; returns
+    ``(out_re, out_im)``. ``ar``/``ai``: (M, K) f32, any M, N, K >= 1."""
+    return _dispatch(ar, ai, b.planes, b)
 
 
 def csplit_matmul(ar, ai, brh, brl, bih, bil):
     """(ar + i*ai) @ (b) with pre-split b planes; returns (out_re, out_im).
 
     ``ar``/``ai``: (M, K) f32. ``b*``: (K, N) f32 planes re_hi, re_lo,
-    im_hi, im_lo. Any M, N, K >= 1."""
-    M, N, K = _check(ar, ai, brh, brl, bih, bil)
-    if ar.device.type == "cpu":
-        csplit_matmul.cpu_calls += 1
-        return csplit_matmul_ref(ar, ai, brh, brl, bih, bil)
-    if ar.device.type != "cuda":
-        raise ValueError(f"csplit_matmul: unsupported device {ar.device}")
-    for t in (ar, ai, brh, brl, bih, bil):
-        if not t.is_contiguous():
-            raise ValueError("csplit_matmul's kernel takes contiguous planes")
-    lib = _library()
-    out_re = torch.empty((M, N), device=ar.device, dtype=torch.float32)
-    out_im = torch.empty((M, N), device=ar.device, dtype=torch.float32)
-    with torch.cuda.device(ar.device):
-        stream = torch.cuda.current_stream(ar.device).cuda_stream
-        err = lib.csplit_matmul_f32(
-            ar.data_ptr(), ai.data_ptr(), brh.data_ptr(), brl.data_ptr(),
-            bih.data_ptr(), bil.data_ptr(), out_re.data_ptr(),
-            out_im.data_ptr(), M, N, K, stream)
-    if err != 0:
-        raise RuntimeError("csplit_matmul kernel launch failed: "
-                           + lib.csplit_error_string(err).decode())
-    csplit_matmul.launches += 1
-    return out_re, out_im
+    im_hi, im_lo. Any M, N, K >= 1; :func:`route` says which kernel a CUDA
+    call launches. The tensor-core route converts the B planes on the fly:
+    a caller with constant planes prepares them once (:func:`prepare_b`)."""
+    return _dispatch(ar, ai, (brh, brl, bih, bil), None)
 
 
 csplit_matmul.launches = 0
+csplit_matmul.launches_tc = 0
+csplit_matmul.launches_f32 = 0
 csplit_matmul.cpu_calls = 0

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..device import complex_dtype, resolve_device
-from .csplit_mm import csplit_matmul, mask_split
+from .csplit_mm import csplit_matmul_prepared, mask_split, prepare_b
 from .spectral import expand_half_to_full, project_full_to_half
 
 _TODO = "not ported yet (ROADMAP.md, queue 1, 'matmul-DFT options')"
@@ -187,6 +187,12 @@ class MatmulTransform:
         G = np.conj(F) / nx  # inverse, 1/n folded
         self._F = (self._const(F.real), self._const(F.imag))
         self._G = (self._const(G.real), self._const(G.imag))
+        # K1 takes the constant planes converted once (bf16 for its
+        # tensor-core route), keyed by the table they came from
+        self._prepared = {}
+        if self.use_pallas:
+            for M in (self._F, self._G):
+                self._prepared[id(M)] = prepare_b(*M[0], *M[1])
         # dense half-spectrum matrices: forward keeps nk = nx//2+1 columns;
         # the inverse folds the Hermitian weights w = [1, 2, ..., 2, 1]
         nk = nx // 2 + 1
@@ -210,24 +216,25 @@ class MatmulTransform:
         """``(zr + i*zi) @ M`` for a complex constant ``M`` = (re, im), each
         in :meth:`_const` form; contracts the last axis."""
         Mr, Mi = M
-        if self.use_pallas:
-            out = self._kernel_or_none(zr, zi, Mr, Mi)
+        prepared = self._prepared.get(id(M))
+        if prepared is not None:
+            out = self._kernel_or_none(zr, zi, prepared)
             if out is not None:
                 return out
         mm = self._mm
         return mm(zr, Mr) - mm(zi, Mi), mm(zr, Mi) + mm(zi, Mr)
 
-    def _kernel_or_none(self, zr, zi, Mr, Mi):
+    def _kernel_or_none(self, zr, zi, prepared):
         """K1 for the shapes the JAX package sends to its Pallas kernel
         (``ops/fft.py:_pallas_or_none``): K >= 256, N >= 256, rows % 8 == 0."""
         lead = zr.shape[:-1]
         K = zr.shape[-1]
-        N = Mr[0].shape[1]
+        N = prepared.shape[1]
         rows = int(np.prod(lead)) if lead else 1
         if K >= 256 and N >= 256 and rows % 8 == 0:
-            re, im = csplit_matmul(zr.reshape(rows, K).contiguous(),
-                                   zi.reshape(rows, K).contiguous(),
-                                   Mr[0], Mr[1], Mi[0], Mi[1])
+            re, im = csplit_matmul_prepared(zr.reshape(rows, K).contiguous(),
+                                            zi.reshape(rows, K).contiguous(),
+                                            prepared)
             return re.reshape(lead + (N,)), im.reshape(lead + (N,))
         return None
 
