@@ -31,20 +31,27 @@ Phases (any failure exits non-zero):
      of the sharded run, with its steps per second;
   6. the all-to-all kernel (K2) against its plain version, four ranks in
      this process on ``min(4, device_count)`` cards: the sharded path's
-     shape (3 fields, R=512, W=512, complex64), a complex128 one and a
-     ragged one, both directions, bit-exact; then forward and inverse 50
-     times back to back with no host synchronise; its time, the plain
-     version's and the bound (bytes: each block read and written once in
-     HBM, the share that changes cards over NVLink);
+     shape (3 fields, R=512, W=512, complex64), one whose rows leave a
+     short last group of tasks, a complex128 one and two ragged ones (one
+     on the 8-byte path), both directions, bit-exact; then forward and
+     inverse 50 times back to back with no host synchronise; its time per
+     launch on the device (CUDA events around calls enqueued behind a
+     device-side sleep) and per call on the host, the old host-clock figure
+     (back-to-back calls closed by a synchronise, the first design's), the
+     plain version's time and the bound (bytes: each block read and
+     written once in HBM, the share that changes cards over NVLink);
   7. the sharded main path: four ranks in four processes, the flagship at
      2048² in f32 on the pencil FFT, first with K2 as the transpose
      (``transform_opts={"pallas_a2a": True, "overlap_chunks": 2}``), then
      with the default ``all_to_all_single`` route; 2 warm-up and 3 timed
-     steps each, K2's launch count per step, the gathered state against
-     the one-card f32 run and the f64 run, and the two routes against each
-     other; K2's time in that layout, both directions. Where every rank
-     has its own card it also times NCCL's ``all_to_all_single`` on the
-     forward's and the inverse's blocks (``library_ms``).
+     steps each, K2's launch count per step (the counts set to 0 just
+     before the model is built) and per path (all aligned), the gathered
+     state against the one-card f32 run and the f64 run, and the two routes
+     against each other; K2's time in that layout, both directions, on the
+     device and on the host as in phase 6. Where every rank has its own
+     card it also times NCCL's ``all_to_all_single`` on the forward's and
+     the inverse's blocks (``library_ms``), and K2's ``ms`` in the result
+     line is this layout's device time; otherwise it is phase 6's.
 
 The line before the last holds the card's name and power limit; the one
 before it the kernels' JSON record; the last line is
@@ -90,6 +97,7 @@ PEAK_LINK = 450e9         # NVLink, each way, per card
 NRANKS = 4
 K2_LEAD, K2_R, K2_W = 3, NX // NRANKS, NX // NRANKS  # the sharded path's shape
 K2_PAIRS = 50             # forward + inverse, back to back
+K2_SLEEP_CYCLES = 200_000_000  # ~0.1 s: the host enqueues the timed calls
 # 4 stages x (3 forward + 2 inverse) transposes of the fast kernel on the
 # pencil mesh (see PERF.md)
 K2_FWD_PER_STEP, K2_INV_PER_STEP = 12, 8
@@ -128,6 +136,44 @@ def cuda_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def k2_times(torch, call, cards, reps, barrier=None):
+    """Device ms per launch and host µs per call of ``call`` (one K2 call
+    of this process's ranks, or any other call): ``reps`` calls enqueued
+    behind a device-side sleep on each card, so that the device runs them
+    back to back whatever the host's pace. Device: CUDA events on each
+    card's current stream around every call, the mean interval after the
+    first, on the slowest card. Host: ``time.perf_counter_ns`` around each
+    call (no synchronise), mean and median after the first."""
+    call()  # warm
+    for d in cards:
+        torch.cuda.synchronize(d)
+    if barrier is not None:
+        barrier()
+    for d in cards:
+        with torch.cuda.device(d):
+            torch.cuda._sleep(K2_SLEEP_CYCLES)
+    ev = {d: [] for d in cards}
+    host = []
+
+    def mark():
+        for d in cards:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record(torch.cuda.current_stream(d))
+            ev[d].append(e)
+
+    for _ in range(reps):
+        mark()
+        t0 = time.perf_counter_ns()
+        call()
+        host.append((time.perf_counter_ns() - t0) / 1e3)
+    mark()
+    for d in cards:
+        torch.cuda.synchronize(d)
+    dev = max(float(np.mean([a.elapsed_time(b) for a, b in
+                             zip(ev[d][1:-1], ev[d][2:])])) for d in cards)
+    return dev, float(np.mean(host[1:])), float(np.median(host[1:]))
 
 
 def flagship(CoupledModel, ic, nx=NX, **kw):
@@ -322,6 +368,9 @@ def k2_phase(torch, a2a):
     exact((2, 256, NRANKS * 128), torch.complex128, 1, seed=4)
     exact((24, NRANKS * 20), torch.complex64, 2, seed=5)  # ragged, no fields
     exact((24, NRANKS * 21), torch.complex64, 2, seed=7)  # 8-byte units
+    # 17 row groups of tasks, the last one short; 408 tasks a rank, not a
+    # multiple of the grid
+    exact((K2_LEAD, K2_R + 8, NRANKS * K2_W), torch.complex64, 2, seed=8)
 
     # forward then inverse, K2_PAIRS times with no host synchronise: the
     # epochs of both directions advance and the round trip is the identity
@@ -354,23 +403,27 @@ def k2_phase(torch, a2a):
     bound, t_hbm, t_link = k2_bound_ms(nbytes, ncards)
     recs = {}
     zi = [o.clone() for o in a2a.all_to_all_fwd(zs, group, chunks=2)]
+    cards = sorted(set(devices), key=str)
     for name, fn, ref, arg in (
             ("all_to_all_fwd", a2a.all_to_all_fwd, a2a.all_to_all_fwd_ref, zs),
             ("all_to_all_inv", a2a.all_to_all_inv, a2a.all_to_all_inv_ref, zi)):
         kern = lambda x, fn=fn: fn(x, group, chunks=2)
-        # in turns: plain, kernel, kernel, plain
+        # in turns: plain, kernel, kernel, plain (host clock, the old figure)
         p1 = timed(ref, arg, 10)
         k1 = timed(kern, arg)
         k2 = timed(kern, arg)
         p2 = timed(ref, arg, 10)
-        ms = 0.5 * (k1 + k2)
-        log(f"K2 {name} timing, {NRANKS} ranks x {nbytes / 1e6:.1f} MB on "
-            f"{ncards} card(s), host clock over {K2_PAIRS} calls of all "
-            f"ranks: kernel {k1:.4f}/{k2:.4f} ms, plain (slices and "
-            f"torch.cat) {p1:.4f}/{p2:.4f} ms, bound {bound:.4f} ms (bytes: "
-            f"HBM {t_hbm:.4f}, NVLink {t_link:.4f}; "
-            f"{100 * bound / ms:.1f}% of it reached)")
-        recs[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=0.5 * (p1 + p2),
+        dev, host, host_med = k2_times(torch, lambda: kern(arg), cards,
+                                       K2_PAIRS)
+        log(f"K2 {name}, {NRANKS} ranks x {nbytes / 1e6:.1f} MB on {ncards} "
+            f"card(s) in one process: device {dev:.4f} ms per launch of all "
+            f"ranks (CUDA events, {K2_PAIRS} calls enqueued behind a sleep), "
+            f"host {host:.1f} µs per call (median {host_med:.1f}); host clock "
+            f"over {K2_PAIRS} calls: kernel {k1:.4f}/{k2:.4f} ms, plain "
+            f"(slices and torch.cat) {p1:.4f}/{p2:.4f} ms; bound "
+            f"{bound:.4f} ms (bytes: HBM {t_hbm:.4f}, NVLink {t_link:.4f}; "
+            f"{100 * bound / dev:.1f}% of it reached)")
+        recs[name] = dict(max_abs_err=0.0, ms=dev, plain_ms=0.5 * (p1 + p2),
                           bound_ms=bound, bound_by="bytes", library_ms=None)
     if ncards < NRANKS:
         log(f"K2 times above were taken with {NRANKS} ranks on {ncards} "
@@ -396,12 +449,16 @@ def _sharded_rank(rank, port, route, outdir):
 
     backend = dist.get_backend()
     opts = dict(SHARD_OPTS) if route == "k2" else {"overlap_chunks": 2}
+    fwd, inv = a2a.all_to_all_fwd, a2a.all_to_all_inv
+    counts = ("launches", "launches_aligned", "launches_ragged", "cpu_calls")
+    for f in (fwd, inv):  # every K2 count to 0 just before the main path
+        for c in counts:
+            setattr(f, c, 0)
     t0 = time.perf_counter()
     m = flagship(CoupledModel, ic, backend="native", dtype=np.float32,
                  fast=True, mesh=mesh, transform_opts=opts)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    fwd, inv = a2a.all_to_all_fwd, a2a.all_to_all_inv
     n_set = (fwd.launches, inv.launches)
     m.run_steps(WARM_STEPS)
     torch.cuda.synchronize()
@@ -415,6 +472,8 @@ def _sharded_rank(rank, port, route, outdir):
     wall = time.perf_counter() - t0
     n_timed = (fwd.launches - n_set[0] - n_warm[0],
                inv.launches - n_set[1] - n_warm[1])
+    paths = (fwd.launches_aligned + inv.launches_aligned,
+             fwd.launches_ragged + inv.launches_ragged)
     q_end, ke_end = m.q, m.Ke
     finite = bool(np.isfinite(q_end).all() and math.isfinite(ke_end))
 
@@ -426,10 +485,15 @@ def _sharded_rank(rank, port, route, outdir):
     zi = torch.zeros((K2_LEAD, NRANKS * K2_R, K2_W), dtype=torch.complex64,
                      device=mesh.device)
     zi += rank
-    lib_ms = lib_inv_ms = k2_ms = k2_inv_ms = None
+    nan3 = (np.nan,) * 3
+    lib_ms = lib_inv_ms = k2_ms = k2_inv_ms = np.nan
+    k2_dev = k2_inv_dev = lib_dev = lib_inv_dev = nan3
     reps = 20
+    cards = [mesh.device]
 
     def timed(fn):
+        """Host clock over ``reps`` calls, closed by a synchronise (the
+        figure kept from the first design)."""
         fn()
         torch.cuda.synchronize()
         mesh.barrier()
@@ -440,26 +504,36 @@ def _sharded_rank(rank, port, route, outdir):
         return 1e3 * (time.perf_counter() - t0) / reps
 
     if route == "k2":
-        launches = (fwd.launches, inv.launches)
-        k2_ms = timed(lambda: fwd(z, tr._group, chunks=2))
-        k2_inv_ms = timed(lambda: inv(zi, tr._group, chunks=2))
-        fwd.launches, inv.launches = launches  # timing is not the main path
+        main_path = {f: [getattr(f, c) for c in counts] for f in (fwd, inv)}
+        kf = lambda: fwd(z, tr._group, chunks=2)
+        ki = lambda: inv(zi, tr._group, chunks=2)
+        k2_ms, k2_inv_ms = timed(kf), timed(ki)
+        k2_dev = k2_times(torch, kf, cards, K2_PAIRS, mesh.barrier)
+        k2_inv_dev = k2_times(torch, ki, cards, K2_PAIRS, mesh.barrier)
+        for f, vals in main_path.items():  # timing is not the main path
+            for c, v in zip(counts, vals):
+                setattr(f, c, v)
     elif backend == "nccl":
-        send = z.reshape(K2_LEAD, K2_R, NRANKS, K2_W).movedim(-2, 0).contiguous()
+        send = z.reshape(K2_LEAD, K2_R, NRANKS, K2_W).movedim(-2, 0)
+        send = send.contiguous()
         recv = torch.empty_like(send)
-        lib_ms = timed(lambda: dist.all_to_all_single(recv, send))
+        lf = lambda: dist.all_to_all_single(recv, send)
+        lib_ms = timed(lf)
+        lib_dev = k2_times(torch, lf, cards, K2_PAIRS, mesh.barrier)
         # the inverse's blocks: row block r of each field goes to rank r
-        send = zi.reshape(K2_LEAD, NRANKS, K2_R, K2_W).movedim(-3, 0).contiguous()
-        lib_inv_ms = timed(lambda: dist.all_to_all_single(recv, send))
+        sendi = zi.reshape(K2_LEAD, NRANKS, K2_R, K2_W).movedim(-3, 0)
+        sendi = sendi.contiguous()
+        li = lambda: dist.all_to_all_single(recv, sendi)
+        lib_inv_ms = timed(li)
+        lib_inv_dev = k2_times(torch, li, cards, K2_PAIRS, mesh.barrier)
     if rank == 0:
         np.savez(os.path.join(outdir, f"{route}.npz"), q=q, phi=phi, ke=ke,
                  wall=wall, t_build=t_build, n_set=n_set, n_warm=n_warm,
-                 n_timed=n_timed, finite=finite, backend=backend,
-                 cpu_calls=fwd.cpu_calls + inv.cpu_calls,
-                 k2_ms=np.nan if k2_ms is None else k2_ms,
-                 k2_inv_ms=np.nan if k2_inv_ms is None else k2_inv_ms,
-                 lib_ms=np.nan if lib_ms is None else lib_ms,
-                 lib_inv_ms=np.nan if lib_inv_ms is None else lib_inv_ms,
+                 n_timed=n_timed, paths=paths, finite=finite,
+                 backend=backend, cpu_calls=fwd.cpu_calls + inv.cpu_calls,
+                 k2_ms=k2_ms, k2_inv_ms=k2_inv_ms, lib_ms=lib_ms,
+                 lib_inv_ms=lib_inv_ms, k2_dev=k2_dev, k2_inv_dev=k2_inv_dev,
+                 lib_dev=lib_dev, lib_inv_dev=lib_inv_dev,
                  device=str(mesh.device))
     if tr._group is not None:
         tr._group.close()
@@ -523,22 +597,37 @@ def sharded_phase(torch, refs):
         f"(relative; limit {ROUTE_RTOL}: the transposes are copies, the "
         "y-FFTs run in other batch shapes)")
     check(max(dq, dphi) <= ROUTE_RTOL, "the two routes give different states")
-    k2_ms, lib_ms = float(a["k2_ms"]), float(b["lib_ms"])
-    k2_inv_ms, lib_inv_ms = float(a["k2_inv_ms"]), float(b["lib_inv_ms"])
-    log(f"K2 in the {NRANKS}-process layout, {K2_LEAD} fields: forward "
-        f"{k2_ms:.4f} ms, inverse {k2_inv_ms:.4f} ms per launch (host "
-        "clock, 20 launches)")
-    if math.isnan(lib_ms):
-        lib_ms = lib_inv_ms = None
+    n_all = sum(int(x) for key in ("n_set", "n_warm", "n_timed")
+                for x in a[key])
+    aligned, ragged = (int(x) for x in a["paths"])
+    log(f"K2 paths on rank 0's main path: {aligned} launches aligned, "
+        f"{ragged} ragged, of {n_all}")
+    check((aligned, ragged) == (n_all, 0),
+          "the sharded flagship's K2 launches did not all take the aligned "
+          "path")
+    for name, key, host in (("forward", "k2_dev", "k2_ms"),
+                            ("inverse", "k2_inv_dev", "k2_inv_ms")):
+        dev, us, us_med = (float(x) for x in a[key])
+        log(f"K2 {name} in the {NRANKS}-process layout, rank 0, {K2_LEAD} "
+            f"fields: device {dev:.4f} ms per launch (CUDA events, "
+            f"{K2_PAIRS} launches behind a sleep), host {us:.1f} µs per call "
+            f"(median {us_med:.1f}); host clock over 20 launches "
+            f"{float(a[host]):.4f} ms")
+    lib = (float(b["lib_dev"][0]), float(b["lib_inv_dev"][0]))
+    if math.isnan(lib[0]):
+        lib = (None, None)
         log(f"library_ms is null: NCCL's all_to_all_single needs a card per "
             f"rank, and {NRANKS} ranks share {ncards} card(s) here (the "
             "default route ran on gloo through the host)")
     else:
         log(f"NCCL all_to_all_single at the same shape: forward's blocks "
-            f"{lib_ms:.4f} ms, inverse's blocks {lib_inv_ms:.4f} ms")
+            f"{lib[0]:.4f} ms, inverse's blocks {lib[1]:.4f} ms a call on "
+            f"the device (CUDA events); host clock over 20 calls "
+            f"{float(b['lib_ms']):.4f} and {float(b['lib_inv_ms']):.4f} ms")
     launches = tuple(int(x) + int(y) + int(z) for x, y, z in
                      zip(a["n_set"], a["n_warm"], a["n_timed"]))
-    return launches, (lib_ms, lib_inv_ms), (k2_ms, k2_inv_ms)
+    k2_dev = (float(a["k2_dev"][0]), float(a["k2_inv_dev"][0]))
+    return launches, lib, k2_dev
 
 
 def main(argv=None) -> int:
@@ -703,11 +792,14 @@ def main(argv=None) -> int:
     k2_recs, ncards = k2_phase(torch, a2a)
 
     # -- 7. the sharded main path ------------------------------------------------
-    (n_fwd, n_inv), (lib_ms, lib_inv_ms), _ = sharded_phase(torch, refs)
-    k2_recs["all_to_all_fwd"]["launches"] = n_fwd
-    k2_recs["all_to_all_inv"]["launches"] = n_inv
-    k2_recs["all_to_all_fwd"]["library_ms"] = lib_ms
-    k2_recs["all_to_all_inv"]["library_ms"] = lib_inv_ms
+    launches, lib, k2_dev = sharded_phase(torch, refs)
+    for i, name in enumerate(("all_to_all_fwd", "all_to_all_inv")):
+        k2_recs[name]["launches"] = launches[i]
+        k2_recs[name]["library_ms"] = lib[i]
+        if ncards == NRANKS:
+            # a card per rank: the kernel's time is the production layout's,
+            # a process per rank (the bound is the same as phase 6's)
+            k2_recs[name]["ms"] = k2_dev[i]
 
     order = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")

@@ -43,20 +43,29 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set NVCC or CUDA_HOME")
 
 
-def library_path(name: str) -> str:
+def _flags(defines=()) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines=()) -> str:
     src = os.path.join(CSRC_DIR, name + ".cu")
     with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+        digest = hashlib.sha256(fh.read()
+                                + " ".join(_flags(defines)).encode())
+    tag = "".join(f"-{d}" for d in defines)
+    return os.path.join(BUILD_DIR,
+                        f"lib{name}{tag}-{digest.hexdigest()[:16]}.so")
 
 
-def build_all(names=None) -> dict:
+def build_all(names=None, defines=()) -> dict:
     """Compile every missing library; return ``{name: path}``.
 
+    ``defines`` are preprocessor macros for every source of this call (a
+    probe build, such as ``A2A_STAMPS``); the library's name carries them.
     The compiler's resource report (``-Xptxas -v``: registers, shared
     memory, spills) is kept beside each library as ``<lib>.log``."""
     names = sources() if names is None else list(names)
-    paths = {n: library_path(n) for n in names}
+    paths = {n: library_path(n, defines) for n in names}
     procs = {}
     for n, path in paths.items():  # one nvcc per source, all started together
         if os.path.exists(path):
@@ -64,7 +73,7 @@ def build_all(names=None) -> dict:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.tmp{os.getpid()}"
         procs[n] = (tmp, subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+            [nvcc_path(), *_flags(defines), "-o", tmp,
              os.path.join(CSRC_DIR, n + ".cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
@@ -82,10 +91,11 @@ def build_all(names=None) -> dict:
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines=()) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
-    lib = _loaded.get(name)
+    key = (name, tuple(defines))
+    lib = _loaded.get(key)
     if lib is None:
-        lib = ctypes.CDLL(build_all([name])[name])
-        _loaded[name] = lib
+        lib = ctypes.CDLL(build_all([name], defines)[name])
+        _loaded[key] = lib
     return lib

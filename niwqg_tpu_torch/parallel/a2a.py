@@ -6,13 +6,20 @@
 kernels ``niwqg_tpu/parallel/pallas_a2a.py:all_to_all_fwd`` and
 ``all_to_all_inv``, equal to ``lax.all_to_all(tiled=True)``. On CUDA tensors
 they launch the hand-written kernel ``csrc/a2a.cu``, which stores through
-pointers into the other ranks' memory behind its own entry barrier and
-completion flags (the source says how); no collective of
-``torch.distributed`` and no ``copy_`` moves the data. On CPU tensors they
-run the plain version, :func:`all_to_all_fwd_ref` and
-:func:`all_to_all_inv_ref`, which take the list of all ``P`` local blocks
-and slice and concatenate. There is no fallback between the two: a CUDA
-call that cannot launch raises.
+pointers into the other ranks' memory and counts, per peer, the tasks that
+have landed (the source says how); no collective of ``torch.distributed``
+and no ``copy_`` moves the data. On CPU tensors they run the plain
+version, :func:`all_to_all_fwd_ref` and :func:`all_to_all_inv_ref`, which
+take the list of all ``P`` local blocks and slice and concatenate. There is
+no fallback between the two: a CUDA call that cannot launch raises.
+
+The kernel copies a table of tasks (:func:`task_table`), built here once
+per direction, shape, type and chunk count and kept, with everything else
+a launch needs, in a plan of the group: a later call with the same four
+checks its blocks and makes one C call (one for all ``P`` ranks of a
+:meth:`PeerGroup.local` group). The shape alone picks the kernel's path
+(:func:`path`): ``"aligned"`` copies 16-byte units, ``"ragged"`` 8-byte
+ones where a chunk's row segment is not a multiple of 16 bytes.
 
 Where the pointers come from (:class:`PeerGroup`):
 
@@ -34,25 +41,38 @@ Where the pointers come from (:class:`PeerGroup`):
     ``cudaMalloc`` allocation maps to one handle with no offset
     bookkeeping against the caching allocator.
 
-The result is a view of the group's exchange buffer for that direction,
-shape and type: it is valid until the next call with the same three, and
-the caller consumes it before (``PencilTransform`` transforms it at once).
+The result is a view of one of the group's two exchange buffers for that
+direction, shape and type, used in turn: it is valid until the next call
+with the same three, and the caller consumes it (enqueues its reader)
+before that call (``PencilTransform`` transforms it at once). The kernel
+relies on this instead of an entry barrier (``csrc/a2a.cu`` has the
+argument).
 
 ``all_to_all_fwd.launches`` / ``all_to_all_inv.launches`` count kernel
-launches and nothing else; ``.cpu_calls`` count calls served by the plain
-version.
+launches and nothing else, the sum of ``.launches_aligned`` and
+``.launches_ragged`` (one count per path); ``.cpu_calls`` count calls
+served by the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..cuda_build import load
 
 # wall-clock limit of one device-side wait; past it the kernel traps
 _TIMEOUT_NS = 30 * 10**9
+# the kernel's block (csrc/a2a.cu: NT / 32 warps) and the most units of one
+# row segment a task may have (32 lanes x DEPTH loads in flight)
+_WARPS = 16
+MAX_UNITS = 256
+# one task of the kernel (csrc/a2a.cu: HostTask); byte offsets of the first
+# row in the input and in the destination's output
+TASK_DTYPE = np.dtype([("src", "<i8"), ("dst", "<i8"), ("rows", "<i4"),
+                       ("units", "<i4"), ("peer", "<i4"), ("pad", "<i4")])
 
 
 # ----------------------------------------------------------------------
@@ -86,17 +106,85 @@ def clamp_chunks(width: int, c: int) -> int:
 
 
 # ----------------------------------------------------------------------
+# the task table
+# ----------------------------------------------------------------------
+def path(width: int, chunks: int, itemsize: int) -> str:
+    """The kernel's path for blocks of ``width`` columns a peer, cut into
+    ``chunks`` column chunks (clamped as the wrappers clamp it), of
+    ``itemsize``-byte elements: ``"aligned"`` (16-byte units) where a
+    chunk's row segment is a multiple of 16 bytes, ``"ragged"`` (8-byte
+    units) otherwise. The shape alone decides."""
+    cw = width // clamp_chunks(width, chunks)
+    return "aligned" if cw * itemsize % 16 == 0 else "ragged"
+
+
+def task_table(inverse: int, lead: int, R: int, W: int, P: int, me: int,
+               chunks: int, itemsize: int):
+    """The tasks of rank ``me``'s launch, and what the launch needs with
+    them.
+
+    The forward input is ``(lead, R, P*W)``, the inverse's ``(lead, P*R,
+    W)``. A task copies ``rows`` row segments of ``units`` units, one
+    (field, destination ``peer``, column chunk, piece of at most
+    :data:`MAX_UNITS` units) at a time, from byte offset ``src`` of the
+    input to byte offset ``dst`` of the destination's output, row after
+    row at the pitches ``in_pitch`` and ``out_pitch``. A task has as many
+    rows as the kernel's block takes in one trip. The table runs chunk,
+    row group, piece, field, then destination (starting at ``me``):
+    neighbouring tasks, which neighbouring blocks take, go to different
+    ranks. Returns ``(tasks, meta)``: a :data:`TASK_DTYPE` array and a dict
+    with ``path``, ``unit``, ``in_pitch``, ``out_pitch`` and ``per_peer``
+    (the tasks that go to each rank)."""
+    chunks = clamp_chunks(W, chunks)
+    kind = path(W, chunks, itemsize)
+    unit = 16 if kind == "aligned" else 8
+    cw = W // chunks
+    seg = cw * itemsize // unit               # units of a chunk's segment
+    npieces = -(-seg // MAX_UNITS)
+    piece = -(-seg // npieces)                # balanced pieces
+    rows_per = _WARPS * max(1, MAX_UNITS // piece)
+    in_pitch = (W if inverse else P * W) * itemsize
+    out_pitch = (P * W if inverse else W) * itemsize
+    recs = []
+    for c in range(chunks):
+        for r0 in range(0, R, rows_per):
+            rows = min(rows_per, R - r0)
+            for k in range(npieces):
+                u0 = k * piece
+                col = c * cw * itemsize + u0 * unit
+                for b in range(lead):
+                    for j in range(P):
+                        d = (me + j) % P
+                        if inverse:
+                            src = (b * P * R + d * R + r0) * in_pitch + col
+                            dst = ((b * R + r0) * out_pitch + me * W * itemsize
+                                   + col)
+                        else:
+                            src = ((b * R + r0) * in_pitch + d * W * itemsize
+                                   + col)
+                            dst = (b * P * R + me * R + r0) * out_pitch + col
+                        recs.append((src, dst, rows, min(piece, seg - u0), d,
+                                     0))
+    tasks = np.array(recs, dtype=TASK_DTYPE)
+    meta = dict(path=kind, unit=unit, in_pitch=in_pitch, out_pitch=out_pitch,
+                per_peer=len(recs) // P)
+    return tasks, meta
+
+
+# ----------------------------------------------------------------------
 # the kernel's library
 # ----------------------------------------------------------------------
 def _library():
     lib = load("a2a")
-    fn = lib.a2a_launch
+    fn = lib.a2a_launch_many
     if fn.argtypes is None:
         vp, ll, i, u64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_ulonglong)
-        fn.argtypes = [vp, vp, vp, i, i, ll, ll, ll, i, i, i, i, u64, u64,
-                       i, vp]
+        fn.argtypes = [i, vp, vp, i, u64, u64, vp, vp]
         fn.restype = i
+        lib.a2a_plan_create.argtypes = [vp, i, vp, vp, vp, i, i, i, i, ll,
+                                        ll, i, i, u64, ctypes.POINTER(vp)]
+        lib.a2a_plan_free.argtypes = [vp]
         lib.a2a_malloc.argtypes = [ctypes.c_size_t, ctypes.POINTER(vp)]
         lib.a2a_free.argtypes = [vp]
         lib.a2a_ipc_get.argtypes = [vp, vp]
@@ -123,6 +211,65 @@ class _DeviceBytes:
             "version": 2}
 
 
+class _Buffers:
+    """The two exchange buffers of one (direction, shape, type), used in
+    turn: ``outs[parity]`` (this process's ranks' outputs) and
+    ``ptrs[parity]`` (all ``P`` ranks' addresses)."""
+
+    def __init__(self, outs, ptrs):
+        self.outs, self.ptrs = outs, ptrs
+        self.calls = 0
+
+
+class _Plan:
+    """Everything one (direction, shape, type, chunks) launch needs but
+    the blocks: the C plan of each local rank and the argument arrays."""
+
+    def __init__(self, lib, group, inverse, shape, dtype, chunks):
+        nP = group.nP
+        lead = 1
+        for s in shape[:-2]:
+            lead *= s
+        if inverse:
+            R, W = shape[-2] // nP, shape[-1]
+            out_shape = tuple(shape[:-2]) + (R, nP * W)
+        else:
+            R, W = shape[-2], shape[-1] // nP
+            out_shape = tuple(shape[:-2]) + (nP * R, W)
+        self.lib, self.shape, self.dtype = lib, shape, dtype
+        self.bufs = group._buffers(lib, inverse, out_shape, dtype)
+        self.devices = [group.devices[r] for r in group.ranks]
+        self.cards = sorted(set(self.devices), key=str)
+        self.n = n = len(group.ranks)
+        handles = []
+        arr = ctypes.c_void_p * nP
+        outs0, outs1 = arr(*self.bufs.ptrs[0]), arr(*self.bufs.ptrs[1])
+        flags = arr(*group._flags)
+        for r, dev in zip(group.ranks, self.devices):
+            tasks, meta = task_table(inverse, lead, R, W, nP, r, chunks,
+                                     dtype.itemsize)
+            h = ctypes.c_void_p()
+            _ok(lib, lib.a2a_plan_create(
+                tasks.ctypes.data, len(tasks), outs0, outs1, flags, r, nP,
+                inverse, int(meta["path"] == "aligned"), meta["in_pitch"],
+                meta["out_pitch"], group.blocks, dev.index, _TIMEOUT_NS,
+                ctypes.byref(h)), "plan")
+            handles.append(h.value)
+        group._handles += handles
+        self.path = meta["path"]
+        self.align = meta["unit"]
+        self.per_peer = meta["per_peer"]
+        self.counter = "launches_" + self.path
+        vn = ctypes.c_void_p * n
+        self.handles = vn(*handles)
+        self.ins = vn()
+        self.streams = vn()
+        self.waits = None
+        if group._streams is not None:  # ranks that share a card
+            self.streams = vn(*(s.cuda_stream for s in group._streams))
+            self.waits = vn()
+
+
 # ----------------------------------------------------------------------
 # who the peers are and where their memory is
 # ----------------------------------------------------------------------
@@ -146,10 +293,13 @@ class PeerGroup:
             self.devices = dict(enumerate(devs))
         self.blocks = None        # grid of one launch
         self._epoch = [0, 0]      # launches so far, forward and inverse
+        self._arrived = [0, 0]    # tasks each peer has sent, cumulative
         self._flags = None        # P flag pointers
         self._keep = []           # flag tensors kept alive
-        self._outs = {}           # (inverse, shape, dtype) -> (tensors, ptrs)
-        self._streams = None
+        self._bufs = {}           # (inverse, out shape, dtype) -> _Buffers
+        self._plans = {}          # (inverse, shape, dtype, chunks) -> _Plan
+        self._handles = []        # every C plan, to free
+        self._streams = None      # a stream per rank where ranks share a card
         self._opened = []
         self._owned = []
 
@@ -159,17 +309,21 @@ class PeerGroup:
         return cls(devices=devices)
 
     # -- set-up, at the first CUDA launch -------------------------------------
-    def _shares_card(self) -> bool:
+    def _ranks_per_card(self) -> int:
+        """Ranks that share one card: their grids run together."""
         if self.mesh is None:
-            return len(set(self.devices.values())) < self.nP
-        return self.nP > torch.cuda.device_count()
+            devs = list(self.devices.values())
+            return max(devs.count(d) for d in devs)
+        return -(-self.nP // torch.cuda.device_count())
 
     def _setup(self, lib):
         if self.nP > lib.a2a_max_ranks():
             raise ValueError(f"the kernel takes at most "
                              f"{lib.a2a_max_ranks()} ranks, got {self.nP}")
-        # ranks that share a card must be resident together
-        self.blocks = 32 if self._shares_card() else 128
+        dev0 = self.devices[self.ranks[0]]
+        sms = torch.cuda.get_device_properties(dev0).multi_processor_count
+        # a persistent grid: the card's SMs, shared by the ranks on it
+        self.blocks = max(1, sms // self._ranks_per_card())
         words = lib.a2a_flag_words()
         if self.mesh is None:
             cards = sorted({d.index for d in self.devices.values()})
@@ -188,8 +342,11 @@ class PeerGroup:
                      for d in self.devices.values()]
             self._keep += flags
             self._flags = [f.data_ptr() for f in flags]
-            self._streams = [torch.cuda.Stream(d)
-                             for d in self.devices.values()]
+            if self._ranks_per_card() > 1:
+                # one stream per rank, so that the ranks of a card run
+                # together
+                self._streams = [torch.cuda.Stream(d)
+                                 for d in self.devices.values()]
             for d in set(self.devices.values()):
                 torch.cuda.synchronize(d)
         else:
@@ -219,37 +376,54 @@ class PeerGroup:
                 ptrs.append(p.value)
         return ptr.value, ptrs
 
-    def _out_buffers(self, lib, inverse, shape, dtype):
+    def _buffers(self, lib, inverse, shape, dtype) -> _Buffers:
         key = (inverse, tuple(shape), dtype)
-        hit = self._outs.get(key)
+        hit = self._bufs.get(key)
         if hit is not None:
             return hit
         if self.mesh is None:
-            outs = [torch.empty(shape, dtype=dtype, device=d)
-                    for d in self.devices.values()]
-            ptrs = [o.data_ptr() for o in outs]
+            outs = [[torch.empty(shape, dtype=dtype, device=d)
+                     for d in self.devices.values()] for _ in range(2)]
+            ptrs = [[o.data_ptr() for o in pair] for pair in outs]
         else:
             n = 1
             for s in shape:
                 n *= s
             nbytes = n * dtype.itemsize
-            own, ptrs = self._shared_alloc(lib, nbytes)
+            half = -(-nbytes // 256) * 256  # the second buffer, aligned
+            own, base = self._shared_alloc(lib, 2 * half)
             dev = self.mesh.device
             with torch.cuda.device(dev):
-                raw = torch.as_tensor(_DeviceBytes(own, nbytes), device=dev)
-            outs = [raw.view(dtype).view(shape)]
-        self._outs[key] = (outs, ptrs)
-        return outs, ptrs
+                raw = torch.as_tensor(_DeviceBytes(own, 2 * half), device=dev)
+            outs = [[raw[k * half:k * half + nbytes].view(dtype).view(shape)]
+                    for k in range(2)]
+            ptrs = [base, [p + half for p in base]]
+        self._bufs[key] = buf = _Buffers(outs, ptrs)
+        return buf
+
+    def _plan(self, inverse, shape, dtype, chunks) -> _Plan:
+        lib = _library()
+        if self._flags is None:
+            self._setup(lib)
+        plan = _Plan(lib, self, inverse, shape, dtype, chunks)
+        self._plans[(inverse, shape, dtype, chunks)] = plan
+        return plan
 
     def close(self):
-        """Unmap the peers' memory and free this rank's (after a barrier:
-        no peer may still be storing into it)."""
-        if self.mesh is None or self._flags is None:
+        """Free the plans; on a mesh, unmap the peers' memory and free this
+        rank's (after a barrier: no peer may still be storing into it)."""
+        if self._flags is None:
             return
         lib = _library()
-        torch.cuda.synchronize(self.mesh.device)
+        for d in set(self.devices.values()):
+            torch.cuda.synchronize(d)
+        for h in self._handles:
+            lib.a2a_plan_free(h)
+        self._handles, self._plans = [], {}
+        if self.mesh is None:
+            return
         self.mesh.barrier()
-        self._outs.clear()
+        self._bufs.clear()
         with torch.cuda.device(self.mesh.device):
             for p in self._opened:
                 lib.a2a_ipc_close(p)
@@ -273,65 +447,44 @@ def _check(z, nP, inverse):
                          f"{nP} ranks")
 
 
-def _exchange(fn, blocks, group: PeerGroup, chunks: int, inverse: int):
-    """Launch one kernel per rank this process holds; returns the outputs."""
-    z0 = blocks[0]
-    nP = group.nP
-    lead_shape = tuple(z0.shape[:-2])
-    lead = 1
-    for s in lead_shape:
-        lead *= s
-    if inverse:
-        R, W = z0.shape[-2] // nP, z0.shape[-1]
-        out_shape = lead_shape + (R, nP * W)
-    else:
-        R, W = z0.shape[-2], z0.shape[-1] // nP
-        out_shape = lead_shape + (nP * R, W)
-    chunks = clamp_chunks(W, chunks)
-    es = z0.dtype.itemsize
-    for r, z in zip(group.ranks, blocks):
-        if z.shape != z0.shape or z.dtype != z0.dtype:
-            raise ValueError("all_to_all blocks differ in shape or type")
-        if z.device != group.devices[r]:
-            raise ValueError(f"rank {r}'s block lies on {z.device}, its "
-                             f"rank on {group.devices[r]}")
-        if not z.is_contiguous():
-            raise ValueError("all_to_all's kernel takes contiguous blocks")
-        if z.data_ptr() % es:
-            raise ValueError("all_to_all's kernel takes aligned blocks")
-    lib = _library()
-    if group._flags is None:
-        group._setup(lib)
-    outs, out_ptrs = group._out_buffers(lib, inverse, out_shape, z0.dtype)
-    vec16 = int((W // chunks) * es % 16 == 0
-                and all(z.data_ptr() % 16 == 0 for z in blocks)
-                and all(p % 16 == 0 for p in out_ptrs))
-    if es == 16 and not vec16:
-        raise ValueError("all_to_all's kernel takes 16-byte aligned "
-                         "complex128 blocks")
-    group._epoch[inverse] += 1
-    epoch = group._epoch[inverse]
-    arr = ctypes.c_void_p * nP
-    c_outs, c_flags = arr(*out_ptrs), arr(*group._flags)
-    for i, (r, z) in enumerate(zip(group.ranks, blocks)):
-        dev = group.devices[r]
-        with torch.cuda.device(dev):
-            cur = torch.cuda.current_stream(dev)
-            stream = cur
-            if group._streams is not None:
-                # one stream per rank, so that the P kernels run together
-                stream = group._streams[i]
-                stream.wait_stream(cur)
-            err = lib.a2a_launch(
-                z.data_ptr(), c_outs, c_flags, r, nP, lead, R, W, chunks, es,
-                inverse, vec16, epoch, _TIMEOUT_NS, group.blocks,
-                stream.cuda_stream)
-        _ok(lib, err, "launch")
-        fn.launches += 1
-    if group._streams is not None:
-        for r, stream in zip(group.ranks, group._streams):
-            torch.cuda.current_stream(group.devices[r]).wait_stream(stream)
-    return outs
+def _refuse(plan, z, dev):
+    """Raise for a block that ``plan`` does not take."""
+    if z.shape != plan.shape or z.dtype != plan.dtype:
+        raise ValueError("all_to_all blocks differ in shape or type")
+    if z.device != dev:
+        raise ValueError(f"a block lies on {z.device}, its rank on {dev}")
+    if not z.is_contiguous():
+        raise ValueError("all_to_all's kernel takes contiguous blocks")
+    raise ValueError(f"all_to_all's kernel takes {plan.align}-byte aligned "
+                     f"blocks on its {plan.path} path")
+
+
+def _launch(fn, plan, blocks, group, inverse):
+    """One C call for this process's ranks; returns their outputs."""
+    for z, dev in zip(blocks, plan.devices):
+        if (z.device != dev or z.shape != plan.shape or z.dtype != plan.dtype
+                or not z.is_contiguous() or z.data_ptr() % plan.align):
+            _refuse(plan, z, dev)
+    bufs = plan.bufs
+    parity = bufs.calls & 1
+    epoch = group._epoch[inverse] + 1
+    target = group._arrived[inverse] + plan.per_peer
+    cur = {d: torch.cuda.current_stream(d).cuda_stream for d in plan.cards}
+    # the caller's streams: where the ranks run, or what their own wait for
+    callers = plan.streams if plan.waits is None else plan.waits
+    for i, (z, dev) in enumerate(zip(blocks, plan.devices)):
+        plan.ins[i] = z.data_ptr()
+        callers[i] = cur[dev]
+    lib = plan.lib
+    _ok(lib, lib.a2a_launch_many(plan.n, plan.handles, plan.ins, parity,
+                                 target, epoch, plan.streams, plan.waits),
+        "launch")
+    bufs.calls += 1
+    group._epoch[inverse] = epoch
+    group._arrived[inverse] = target
+    fn.launches += plan.n
+    setattr(fn, plan.counter, getattr(fn, plan.counter) + plan.n)
+    return bufs.outs[parity]
 
 
 def _all_to_all(fn, ref, z, group: PeerGroup, chunks: int, inverse: int):
@@ -340,18 +493,24 @@ def _all_to_all(fn, ref, z, group: PeerGroup, chunks: int, inverse: int):
     if len(blocks) != len(group.ranks):
         raise ValueError(f"this process holds {len(group.ranks)} rank(s) of "
                          f"the group, got {len(blocks)} block(s)")
-    for b in blocks:
-        _check(b, group.nP, inverse)
-    kinds = {b.device.type for b in blocks}
-    if kinds == {"cpu"}:
-        fn.cpu_calls += 1
-        if many:
-            return ref(blocks)
-        # one rank per process: the plain version wants every rank's block
-        return ref(group.mesh.all_gather(blocks[0]))[group.mesh.rank]
-    if kinds != {"cuda"}:
-        raise ValueError(f"all_to_all: unsupported devices {sorted(kinds)}")
-    outs = _exchange(fn, blocks, group, chunks, inverse)
+    z0 = blocks[0]
+    plan = group._plans.get((inverse, z0.shape, z0.dtype, chunks))
+    if plan is None:  # CPU blocks, or the first call of this key
+        for b in blocks:
+            _check(b, group.nP, inverse)
+        kinds = {b.device.type for b in blocks}
+        if kinds == {"cpu"}:
+            fn.cpu_calls += 1
+            if many:
+                return ref(blocks)
+            # one rank per process: the plain version wants every rank's
+            # block
+            return ref(group.mesh.all_gather(blocks[0]))[group.mesh.rank]
+        if kinds != {"cuda"}:
+            raise ValueError(f"all_to_all: unsupported devices "
+                             f"{sorted(kinds)}")
+        plan = group._plan(inverse, z0.shape, z0.dtype, chunks)
+    outs = _launch(fn, plan, blocks, group, inverse)
     return outs if many else outs[0]
 
 
@@ -371,4 +530,6 @@ def all_to_all_inv(z, group: PeerGroup, chunks: int = 1):
 
 for _fn in (all_to_all_fwd, all_to_all_inv):
     _fn.launches = 0
+    _fn.launches_aligned = 0
+    _fn.launches_ragged = 0
     _fn.cpu_calls = 0

@@ -151,3 +151,101 @@ def test_cuda_blocks_launch_the_kernel_or_raise(monkeypatch):
         a2a.all_to_all_fwd(
             [_FakeCudaBlock()] + [torch.zeros(8, 16, dtype=torch.complex64)
                                   for _ in range(NDEV - 1)], group)
+
+
+# -- the kernel's task table --------------------------------------------------
+def _apply_tasks(inverse, blocks, chunks):
+    """Every rank's launch as its task table describes it, done with tensor
+    slicing on bytes; returns every rank's output and how many times each
+    of its bytes was written."""
+    P = len(blocks)
+    shape = blocks[0].shape
+    lead = int(np.prod(shape[:-2], dtype=np.int64))
+    if inverse:
+        R, W = shape[-2] // P, shape[-1]
+        out_shape = shape[:-2] + (R, P * W)
+    else:
+        R, W = shape[-2], shape[-1] // P
+        out_shape = shape[:-2] + (P * R, W)
+    es = blocks[0].element_size()
+    outs = [torch.zeros(out_shape, dtype=blocks[0].dtype) for _ in range(P)]
+    out_bytes = [o.view(-1).view(torch.uint8) for o in outs]
+    counts = [torch.zeros(o.numel(), dtype=torch.int32) for o in out_bytes]
+    metas = []
+    for me, z in enumerate(blocks):
+        tasks, meta = a2a.task_table(inverse, lead, R, W, P, me, chunks, es)
+        metas.append((tasks, meta))
+        src_bytes = z.contiguous().view(-1).view(torch.uint8)
+        for t in tasks:
+            nb = int(t["units"]) * meta["unit"]
+            rows = torch.arange(int(t["rows"]))[:, None]
+            cols = torch.arange(nb)[None, :]
+            si = (int(t["src"]) + rows * meta["in_pitch"] + cols).reshape(-1)
+            di = (int(t["dst"]) + rows * meta["out_pitch"] + cols).reshape(-1)
+            d = int(t["peer"])
+            out_bytes[d][di] = src_bytes[si]
+            counts[d][di] += 1
+    return outs, counts, metas
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 4])
+@pytest.mark.parametrize("inverse", [0, 1])
+@pytest.mark.parametrize("shape,dtype", [
+    ((3, 40, 4 * 16), torch.complex64),      # several fields, W = 16
+    ((8, 4 * 20), torch.complex64),          # lead = 1, W = 20: 80-byte rows
+    ((2, 70, 4 * 128), torch.complex64),     # rows in several task groups
+    ((5, 4 * 21), torch.complex64),          # W = 21: the ragged path
+    ((2, 3, 4 * 6), torch.complex64),        # W = 6, 24-byte chunks: ragged
+    ((2, 6, 4 * 8), torch.complex128),
+    ((3, 4 * 512), torch.complex128),        # a segment in several pieces
+])
+def test_task_table_covers_every_element_once(shape, dtype, inverse, chunks):
+    """The table the wrapper hands the kernel, applied by slicing: every
+    byte of every rank's output is written exactly once, and the result is
+    the plain version's (offsets and pitches are right)."""
+    if inverse:  # the inverse takes the forward's output shape
+        shape = shape[:-2] + (NDEV * shape[-2], shape[-1] // NDEV)
+    rng = np.random.default_rng(len(shape) + shape[-1] + chunks)
+    blocks = [torch.as_tensor(rng.standard_normal(shape)
+                              + 1j * rng.standard_normal(shape)).to(dtype)
+              for _ in range(NDEV)]
+    outs, counts, metas = _apply_tasks(inverse, blocks, chunks)
+    ref = a2a.all_to_all_inv_ref if inverse else a2a.all_to_all_fwd_ref
+    want = ref(blocks)
+    for d in range(NDEV):
+        assert torch.equal(counts[d], torch.ones_like(counts[d]))
+        assert torch.equal(outs[d], want[d])
+    for tasks, meta in metas:
+        assert (tasks["units"] <= a2a.MAX_UNITS).all()
+        assert (tasks["rows"] >= 1).all() and (tasks["units"] >= 1).all()
+        assert (tasks["src"] % meta["unit"] == 0).all()
+        assert (tasks["dst"] % meta["unit"] == 0).all()
+        # neighbouring tasks, taken by neighbouring blocks, change rank
+        assert (np.diff(tasks["peer"]) != 0).all()
+        assert len(tasks) == NDEV * meta["per_peer"]
+        assert all((tasks["peer"] == d).sum() == meta["per_peer"]
+                   for d in range(NDEV))
+
+
+@pytest.mark.parametrize("width,chunks,itemsize,want", [
+    (512, 2, 8, "aligned"),     # the sharded flagship: 2 KB segments
+    (512, 1, 8, "aligned"),
+    (257, 2, 8, "ragged"),      # 257 has no divisor 2: one 2056-byte chunk
+    (21, 2, 8, "ragged"),       # W = 21 complex64
+    (20, 2, 8, "aligned"),      # two chunks of 10: 80 bytes
+    (6, 2, 8, "ragged"),        # two chunks of 3: 24 bytes
+    (21, 1, 16, "aligned"),     # complex128 is always whole units
+    (1, 4, 8, "ragged"),
+])
+def test_path_by_shape(width, chunks, itemsize, want):
+    assert a2a.path(width, chunks, itemsize) == want
+
+
+def test_flagship_table():
+    """The sharded flagship's forward launch: 2 KB segments, one trip of
+    the kernel's block (16 warps x 2 rows) a task, 384 tasks."""
+    tasks, meta = a2a.task_table(0, 3, 512, 512, NDEV, 1, 2, 8)
+    assert meta["path"] == "aligned" and meta["per_peer"] == 96
+    assert (tasks["units"] == 128).all() and (tasks["rows"] == 32).all()
+    assert list(tasks["peer"][:NDEV]) == [1, 2, 3, 0]  # starts at me
+    assert meta["in_pitch"] == NDEV * 512 * 8 and meta["out_pitch"] == 512 * 8

@@ -198,22 +198,56 @@ def _k2_blocks(shape, dtype, devices, seed):
     ((3, 512, 2048), torch.complex64, 2),    # the sharded flagship's block
     ((2, 256, 512), torch.complex128, 1),
     ((24, 80), torch.complex64, 2),          # no leading fields, W = 20
-    ((24, 84), torch.complex64, 2),          # W = 21: 8-byte units
+    ((24, 84), torch.complex64, 2),          # W = 21: the 8-byte path
+    ((512, 2048), torch.complex64, 2),       # lead = 1 at the flagship's width
+    ((3, 520, 2048), torch.complex64, 2),    # 408 tasks: not a multiple of
+                                             # the grid, a short last group
+    ((2, 8, 4096), torch.complex128, 1),     # 16 KB segments in 4 pieces
 ])
 def test_a2a_kernel_matches_plain_version(peers, shape, dtype, chunks):
     group, devices = peers
     inv_shape = shape[:-2] + (NRANKS * shape[-2], shape[-1] // NRANKS)
+    kind = a2a.path(shape[-1] // NRANKS, chunks, dtype.itemsize)
     for fn, ref, shp in ((a2a.all_to_all_fwd, a2a.all_to_all_fwd_ref, shape),
                          (a2a.all_to_all_inv, a2a.all_to_all_inv_ref,
                           inv_shape)):
         zs = _k2_blocks(shp, dtype, devices, seed=sum(shp))
-        n = fn.launches
+        n, n_path = fn.launches, getattr(fn, "launches_" + kind)
         got = fn(zs, group, chunks=chunks)
         torch.cuda.synchronize()
         assert fn.launches == n + NRANKS
+        assert getattr(fn, "launches_" + kind) == n_path + NRANKS
         want = ref([z.cpu() for z in zs])
         for r in range(NRANKS):
             assert torch.equal(got[r].cpu(), want[r])  # a copy: bit-exact
+
+
+def test_a2a_flagship_takes_the_aligned_path(peers):
+    group, devices = peers
+    assert a2a.path(512, 2, 8) == "aligned"
+    zs = _k2_blocks((3, 512, 2048), torch.complex64, devices, seed=2)
+    fwd = a2a.all_to_all_fwd
+    n = (fwd.launches_aligned, fwd.launches_ragged)
+    fwd(zs, group, chunks=2)
+    torch.cuda.synchronize()
+    assert (fwd.launches_aligned, fwd.launches_ragged) == (n[0] + NRANKS, n[1])
+
+
+@pytest.mark.parametrize("inverse", [0, 1])
+def test_a2a_chunks_give_the_same_bits(peers, inverse):
+    """chunks = 1, 2 and 4 order the copy differently; the result is the
+    same, bit for bit."""
+    group, devices = peers
+    fn = a2a.all_to_all_inv if inverse else a2a.all_to_all_fwd
+    shape = (3, NRANKS * 512, 512) if inverse else (3, 512, NRANKS * 512)
+    zs = _k2_blocks(shape, torch.complex64, devices, seed=11)
+    got = {}
+    for chunks in (1, 2, 4):
+        out = fn(zs, group, chunks=chunks)
+        torch.cuda.synchronize()
+        got[chunks] = [o.cpu() for o in out]
+    for chunks in (2, 4):
+        assert all(torch.equal(a, b) for a, b in zip(got[1], got[chunks]))
 
 
 def test_a2a_epochs_back_to_back(peers):

@@ -2,19 +2,26 @@
 """Where a step of the PyTorch port's flagship spends its time on the card.
 
 Builds the flagship coupled model (``chip_smoke.flagship``) at
-``--nx`` on the first CUDA card, in one or both configurations:
+``--nx`` on the first CUDA card, in one or more configurations:
 
   k1      the matmul-DFT with the hand-written complex-split kernel (f32,
           'split' precision, dense swap formulation) — the slice's main path;
-  cufft   the same model on ``torch.fft`` (cuFFT), f32.
+  cufft   the same model on ``torch.fft`` (cuFFT), f32;
+  sharded the sharded flagship of ``chip_smoke.py`` phase 7: four ranks in
+          four processes (rank r on card r % device_count), f32 on the
+          pencil FFT with K2 as the transpose
+          (``transform_opts={"pallas_a2a": True, "overlap_chunks": 2}``);
+          rank 0 is profiled while all four step.
 
 For each it times ``--steps`` steps with the host clock (closed by a
-synchronise), then profiles ``--steps`` more with ``torch.profiler`` and
-prints the device time per step grouped by kernel family (the K1 kernel,
-cuBLAS/CUTLASS GEMMs, FFTs, the rest) with the device's idle share, and
-the top kernels. A Chrome trace per configuration goes to ``--out``.
+synchronise, on a mesh also by a barrier), then profiles ``--steps`` more
+with ``torch.profiler`` and prints the device time per step grouped by
+kernel family (the K1 kernel, the K2 kernel, cuBLAS/CUTLASS GEMMs, FFTs,
+NCCL, the rest) with the device's idle share, and the top kernels. A
+Chrome trace per configuration goes to ``--out``.
 
     python3 tools/profile_torch_step.py --nx 2048 --out output_profile
+    python3 tools/profile_torch_step.py --configs sharded
 """
 
 from __future__ import annotations
@@ -22,8 +29,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -32,11 +42,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 sys.path.insert(0, ROOT)
 
-from chip_smoke import K1_TRANSFORM, flagship  # noqa: E402
+from chip_smoke import (K1_TRANSFORM, NRANKS, SHARD_OPTS,  # noqa: E402
+                        flagship)
 
 CONFIGS = {
     "k1": dict(backend="mxu", precision="split", transform_opts=K1_TRANSFORM),
     "cufft": dict(backend="native"),
+    "sharded": dict(backend="native", fast=True, transform_opts=SHARD_OPTS),
 }
 
 
@@ -44,6 +56,10 @@ def family(name: str) -> str:
     n = name.lower()
     if "csplit_mm" in n:
         return "K1 csplit_mm"
+    if "a2a_kernel" in n:
+        return "K2 a2a"
+    if "nccl" in n:
+        return "NCCL"
     if "gemm" in n or "cutlass" in n or "sm90_xmma" in n:
         return "GEMM (torch.matmul)"
     if "fft" in n:
@@ -51,32 +67,51 @@ def family(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def profile(name, nx, steps, out_dir):
+def profile(name, nx, steps, out_dir, mesh=None):
+    """Time and profile ``steps`` steps of one configuration; on a mesh
+    every rank steps and rank 0 alone is profiled and reports."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     from niwqg_tpu_torch import CoupledModel
     from niwqg_tpu_torch import InitialConditions as ic
 
-    m = flagship(CoupledModel, ic, nx=nx, dtype=np.float32, **CONFIGS[name])
+    kw = dict(CONFIGS[name])
+    if mesh is not None:
+        kw["mesh"] = mesh
+    m = flagship(CoupledModel, ic, nx=nx, dtype=np.float32, **kw)
     m.run_steps(2)
-    torch.cuda.synchronize()
 
+    def sync():
+        torch.cuda.synchronize()
+        if mesh is not None:
+            mesh.barrier()
+
+    sync()
     t0 = time.perf_counter()
     m.run_steps(steps)
-    torch.cuda.synchronize()
+    sync()
     wall = (time.perf_counter() - t0) / steps
+    rank0 = mesh is None or mesh.rank == 0
+    if not rank0:
+        m.run_steps(steps)
+        sync()
+        return m, None
 
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA],
                                 acc_events=True) as prof:
         t0 = time.perf_counter()
         m.run_steps(steps)
-        torch.cuda.synchronize()
+        sync()
         wall_prof = (time.perf_counter() - t0) / steps
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
+    return m, summarize(prof, name, nx, steps, wall, wall_prof)
+
+
+def summarize(prof, name, nx, steps, wall, wall_prof):
+    from torch.autograd import DeviceType
 
     fam, kernels = {}, []
     for evt in prof.key_averages():
@@ -96,16 +131,55 @@ def profile(name, nx, steps, out_dir):
           f"({1.0 / wall:.3f} steps/s) unprofiled, "
           f"{1e3 * wall_prof:.1f} ms/step profiled; device busy "
           f"{busy_ms:.1f} ms/step, idle share "
-          f"{max(0.0, 1.0 - busy_ms / (1e3 * wall_prof)):.3f}")
+          f"{max(0.0, 1.0 - busy_ms / (1e3 * wall_prof)):.3f}", flush=True)
     for f, us in sorted(fam.items(), key=lambda kv: -kv[1]):
         print(f"   {us / 1e3:9.2f} ms/step  {100 * us / 1e3 / busy_ms:5.1f}%"
               f"  {f}")
     print("   top kernels (ms/step, launches/step, name):")
     for us, cnt, key in sorted(kernels, reverse=True)[:8]:
-        print(f"   {us / 1e3:9.3f}  {cnt:5d}  {key[:110]}")
+        print(f"   {us / 1e3:9.3f}  {cnt:5d}  {key[:110]}", flush=True)
     return dict(config=name, nx=nx, ms_per_step=1e3 * wall,
                 ms_per_step_profiled=1e3 * wall_prof, device_busy_ms=busy_ms,
                 families_ms={f: us / 1e3 for f, us in fam.items()})
+
+
+def _sharded_rank(rank, port, nx, steps, out_dir, result):
+    """One rank of the sharded configuration (a child process)."""
+    import torch
+
+    os.environ.setdefault("NIWQG_TORCH_TABLE_CACHE", "0")
+    os.environ.setdefault("NIWQG_ETDRK4_WORKERS", "2")
+    from niwqg_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"localhost:{port}", NRANKS, rank, timeout_s=300)
+    mesh = multihost.global_mesh()
+    torch.cuda.set_device(mesh.device)
+    m, res = profile("sharded", nx, steps, out_dir, mesh)
+    if res is not None:
+        res["ranks"] = NRANKS
+        res["backend"] = str(torch.distributed.get_backend())
+        with open(result, "w") as fh:
+            json.dump(res, fh)
+    if m.kernel.tr._group is not None:
+        m.kernel.tr._group.close()
+    multihost.shutdown()
+
+
+def profile_sharded(nx, steps, out_dir):
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="profile_sharded_")
+    result = os.path.join(tmp, "rank0.json")
+    with socket.socket() as sock:  # a free port for the rendezvous
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    try:
+        mp.spawn(_sharded_rank, args=(port, nx, steps, out_dir, result),
+                 nprocs=NRANKS, join=True)
+        with open(result) as fh:
+            return json.load(fh)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -127,7 +201,8 @@ def main() -> int:
                            "--format=csv,noheader"], check=True,
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    res = [profile(c, args.nx, args.steps, args.out)
+    res = [profile_sharded(args.nx, args.steps, args.out) if c == "sharded"
+           else profile(c, args.nx, args.steps, args.out)[1]
            for c in args.configs.split(",")]
     print(json.dumps({"card": card, "results": res}))
     return 0
