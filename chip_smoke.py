@@ -51,7 +51,20 @@ Phases (any failure exits non-zero):
      device and on the host as in phase 6. Where every rank has its own
      card it also times NCCL's ``all_to_all_single`` on the forward's and
      the inverse's blocks (``library_ms``), and K2's ``ms`` in the result
-     line is this layout's device time; otherwise it is phase 6's.
+     line is this layout's device time; otherwise it is phase 6's;
+  8. the model family at 2048² with the flagship's physics, each model in
+     its default ``faithful_quirks`` mode: ``UnCoupledModel``, ``QLModel``
+     and ``YBJModel`` in the K1 configuration of phase 4, their phi the
+     flagship's plus a wave packet (non-zero gradients, which UnCoupled
+     carries stale from ``set_phi``) (2 warm-up and 3 timed steps, steps
+     per second, K1's launches per step against the count the CPU tests
+     hold to JAX's trace, every launch on the tensor-core route, no
+     plain-version call), each held after 2 steps against the same model
+     in f64 on cuFFT (q, phi and Ke, with Pw and Kw shown beside them;
+     YBJ: phi, and q bitwise what ``set_q`` gave); then ``QGModel`` with its passive
+     scalar (beta=1e-11, a plane-wave tracer) in f32 on cuFFT, timed the
+     same way, against its f64 cuFFT run (q, c, Ke and cvar). K1's
+     ``launches`` in the result line counts phases 4 and 8.
 
 The line before the last holds the card's name and power limit; the one
 before it the kernels' JSON record; the last line is
@@ -79,6 +92,9 @@ U0 = 0.05
 WARM_STEPS = 2
 TIMED_STEPS = 3
 K1_PER_STEP = 40  # 20 complex 2-D transforms x 2 passes (see PERF.md)
+# K1 launches per step of the other wave models in their default quirk
+# modes; tests/test_torch_models.py holds this table to JAX's trace
+K1_PER_STEP_FAMILY = {"UnCoupledModel": 72, "QLModel": 48, "YBJModel": 38}
 K1_TRANSFORM = dict(use_pallas=True, formulation="swap", factors=None,
                     half_factors=None)
 # H100 SXM published peaks at 700 W (NVIDIA data sheet)
@@ -176,17 +192,151 @@ def k2_times(torch, call, cards, reps, barrier=None):
     return dev, float(np.mean(host[1:])), float(np.median(host[1:]))
 
 
-def flagship(CoupledModel, ic, nx=NX, **kw):
+def flagship(CoupledModel, ic, nx=NX, packet=False, **kw):
     """``__graft_entry__._build_coupled``'s configuration: Lamb dipole,
-    U0=0.05, dt=157, L=2*pi*200 km, filter on, nu4=nu4w=7.5e9."""
+    U0=0.05, dt=157, L=2*pi*200 km, filter on, nu4=nu4w=7.5e9. With
+    ``packet`` the constant phi gains a wave packet, so that the wave
+    gradients (which a stale-gradient model carries from ``set_phi``) are
+    not zero. ``kw`` may override the hyperviscosities."""
+    kw = {"nu4": 7.5e9, "nu4w": 7.5e9, **kw}
     m = CoupledModel.Model(L=2 * np.pi * 200e3, nx=nx, dt=157.0,
                            tmax=157.0 * 100, m=1.0 / 325, N=0.005, f=1e-4,
-                           use_filter=True, nu4=7.5e9, nu4w=7.5e9, **kw)
+                           use_filter=True, **kw)
     k0 = 10 * (2 * np.pi / m.L)
     q = ic.LambDipole(m, U=U0, R=2 * np.pi / k0)
     m.set_q(q)
-    m.set_phi((np.ones_like(q) + 1j) * 5 * U0 / np.sqrt(2))
+    phi = (np.ones_like(q) + 1j) * 5 * U0 / np.sqrt(2)
+    if packet:
+        phi = phi + 5 * U0 * ic.WavePacket(m, k=2 * k0, l=k0, R=m.L / 6,
+                                           x0=m.L / 2, y0=m.L / 2)
+    m.set_phi(phi)
     return m
+
+
+def qg_flagship(QGModel, ic, nx=NX, **kw):
+    """The QG(+scalar) counterpart of ``flagship`` (its grid, dt and
+    hyperviscosity), with ``__graft_entry__._run_qg``'s mean flow U=-U0,
+    beta=1e-11 and plane-wave tracer."""
+    m = QGModel.Model(L=2 * np.pi * 200e3, nx=nx, dt=157.0, tmax=157.0 * 100,
+                      use_filter=True, nu4=7.5e9, U=-U0, beta=1e-11,
+                      passive_scalar=True, **kw)
+    k0 = 10 * (2 * np.pi / m.L)
+    m.set_q(ic.LambDipole(m, U=U0, R=2 * np.pi / k0))
+    m.set_c(np.real(ic.PlaneWave(m, k=k0, l=k0)) * 1e-2)
+    return m
+
+
+def zero_k1_counts(mm):
+    for c in ("launches", "launches_tc", "launches_f32", "cpu_calls"):
+        setattr(mm.csplit_matmul, c, 0)
+
+
+def timed_steps(torch, m, fields):
+    """WARM_STEPS steps, the state then, and TIMED_STEPS more on the host
+    clock closed by a synchronise: ({field: value after warm-up},
+    seconds)."""
+    m.run_steps(WARM_STEPS)
+    torch.cuda.synchronize()
+    state = {k: getattr(m, k) for k in fields}
+    t0 = time.perf_counter()
+    m.run_steps(TIMED_STEPS)
+    torch.cuda.synchronize()
+    return state, time.perf_counter() - t0
+
+
+def family_phase(torch, mm):
+    """Phase 8: UnCoupled, QL and YBJ in the K1 configuration, QG (+scalar)
+    in f32 on cuFFT, each against its f64 cuFFT run. Returns the K1
+    launches of the three wave runs."""
+    import niwqg_tpu_torch as pkg
+    from niwqg_tpu_torch import InitialConditions as ic
+
+    def cross(name, a, b, keys, shown=()):
+        """Hold ``keys`` at CROSS_RTOL; print ``shown`` beside them."""
+        d = {}
+        for k in keys + shown:
+            x, y = np.asarray(a[k]), np.asarray(b[k])
+            d[k] = float(np.abs(x - y).max() / np.abs(y).max())
+        log(f"{name} f32 vs f64 cuFFT after {WARM_STEPS} steps: "
+            + ", ".join(f"{k} {d[k]:.3e}" for k in keys)
+            + f" (relative; limit {CROSS_RTOL})"
+            + "".join(f"; {k} {d[k]:.3e}" for k in shown))
+        check(max(d[k] for k in keys) <= CROSS_RTOL,
+              f"{name}: the f32 run disagrees with the f64 cuFFT run")
+
+    launches = 0
+    for name, per_step in K1_PER_STEP_FAMILY.items():
+        mod = getattr(pkg, name)
+        fields = ("phi",) if name == "YBJModel" else ("q", "phi", "Ke")
+        # the wave budgets are shown, not held: with K1's bf16 rounding Pw
+        # ends step 1 about 2.5e-4 off its f64 run at 2048², in the
+        # Coupled model too (tools/probe_wave_budgets.py, PERF.md). YBJ
+        # integrates no budgets.
+        shown = () if name == "YBJModel" else ("Pw", "Kw")
+        count = mm.csplit_matmul
+        zero_k1_counts(mm)
+        t0 = time.perf_counter()
+        m = flagship(mod, ic, packet=True, backend="mxu", dtype=np.float32,
+                     precision="split", transform_opts=K1_TRANSFORM)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        n_set = count.launches
+        s32, wall = timed_steps(torch, m, fields + shown)
+        n = count.launches
+        n_steps = n - n_set
+        launches += n
+        log(f"{name} (K1 configuration, {type(m.kernel).__name__}): built "
+            f"and initialised in {t_build:.1f} s; {TIMED_STEPS} steps in "
+            f"{wall:.3f} s = {TIMED_STEPS / wall:.3f} steps/s "
+            f"({1e3 * wall / TIMED_STEPS:.1f} ms/step); K1 launches: "
+            f"set_q/set_phi {n_set}, steps {n_steps} "
+            f"({n_steps / (WARM_STEPS + TIMED_STEPS):.1f}/step), "
+            f"{count.launches_tc} on the tensor-core route")
+        check(count.cpu_calls == 0, f"{name}: K1 ran its plain version")
+        check(n_steps == per_step * (WARM_STEPS + TIMED_STEPS),
+              f"{name}: expected {per_step} K1 launches per step")
+        check(count.launches_tc == n and count.launches_f32 == 0,
+              f"{name}: K1 launches off the tensor-core route")
+        q_end, phi_end = m.q, m.phi
+        check(np.isfinite(q_end).all() and np.isfinite(phi_end).all()
+              and q_end.shape == (NX, NX), f"{name}: bad state")
+        if name == "YBJModel":
+            # the flow is frozen: q is bitwise what set_q was given
+            k0 = 10 * (2 * np.pi / m.L)
+            q0 = ic.LambDipole(m, U=U0, R=2 * np.pi / k0).astype(np.float32)
+            check(np.array_equal(q_end, q0), "YBJModel: q moved")
+        del m
+        torch.cuda.empty_cache()
+        m64 = flagship(mod, ic, packet=True, backend="native",
+                       dtype=np.float64)
+        m64.run_steps(WARM_STEPS)
+        cross(name, s32, {k: getattr(m64, k) for k in fields + shown},
+              fields, shown)
+        del m64
+        torch.cuda.empty_cache()
+
+    qg_fields = ("q", "c", "Ke", "cvar")
+    zero_k1_counts(mm)
+    t0 = time.perf_counter()
+    m = qg_flagship(pkg.QGModel, ic, backend="native", dtype=np.float32)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    s32, wall = timed_steps(torch, m, qg_fields)
+    log(f"QGModel (passive scalar, f32 cuFFT): built and initialised in "
+        f"{t_build:.1f} s; {TIMED_STEPS} steps in {wall:.3f} s = "
+        f"{TIMED_STEPS / wall:.3f} steps/s ({1e3 * wall / TIMED_STEPS:.1f} "
+        f"ms/step)")
+    check(np.isfinite(m.q).all() and np.isfinite(m.c).all()
+          and math.isfinite(m.cvar), "QGModel: non-finite state")
+    check(mm.csplit_matmul.launches == 0 and mm.csplit_matmul.cpu_calls == 0,
+          "QGModel on cuFFT called K1")
+    del m
+    m64 = qg_flagship(pkg.QGModel, ic, backend="native", dtype=np.float64)
+    m64.run_steps(WARM_STEPS)
+    cross("QGModel", s32, {k: getattr(m64, k) for k in qg_fields}, qg_fields)
+    del m64
+    torch.cuda.empty_cache()
+    return launches
 
 
 def k1_planes(torch, mm, M, K, N, seed, dft):
@@ -636,13 +786,13 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="3,4,5,6,7",
+    ap.add_argument("--phases", default="3,4,5,6,7,8",
                     help="phases to run beyond the card report and the "
                          "build (default: all; a partial run is for "
                          "debugging and prints no result lines)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",") if x}
-    full = phases >= {3, 4, 5, 6, 7}
+    full = phases >= {3, 4, 5, 6, 7, 8}
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -689,6 +839,8 @@ def main(argv=None) -> int:
         k2_phase(torch, a2a)
     if 7 in phases and not full:
         sharded_phase(torch, refs)
+    if 8 in phases and not full:
+        family_phase(torch, mm)
     if not full:
         log("partial run: no result lines")
         return 0
@@ -700,10 +852,7 @@ def main(argv=None) -> int:
     k1_mean_mode(torch, mm)
 
     # -- 4. the main path ------------------------------------------------------
-    mm.csplit_matmul.launches = 0
-    mm.csplit_matmul.launches_tc = 0
-    mm.csplit_matmul.launches_f32 = 0
-    mm.csplit_matmul.cpu_calls = 0
+    zero_k1_counts(mm)
     t0 = time.perf_counter()
     m = flagship(CoupledModel, ic, backend="mxu", dtype=np.float32,
                  precision="split", transform_opts=K1_TRANSFORM)
@@ -800,6 +949,9 @@ def main(argv=None) -> int:
             # a card per rank: the kernel's time is the production layout's,
             # a process per rank (the bound is the same as phase 6's)
             k2_recs[name]["ms"] = k2_dev[i]
+
+    # -- 8. the model family ------------------------------------------------------
+    rec["launches"] += family_phase(torch, mm)
 
     order = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")

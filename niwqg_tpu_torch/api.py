@@ -1,23 +1,26 @@
 """User-facing model classes (port of ``niwqg_tpu/api.py``).
 
 Stateful shells over the kernels with the reference's API surface:
-``Model(**kwargs)``, ``set_q``/``set_phi``, ``run``, ``run_steps`` and
-``model.diagnostics[...]['value']``. Constructor keywords and defaults are
-the JAX package's; the extra ``device`` picks where the model runs: the
+``Model(**kwargs)``, ``set_q``/``set_phi``/``set_c``, ``run``,
+``run_steps`` and ``model.diagnostics[...]['value']``, for the five
+models: Coupled, UnCoupled, QL, YBJ and QG (with its passive scalar).
+Constructor keywords and defaults are the JAX package's, ``faithful_quirks``
+included; the extra ``device`` picks where the model runs: the
 first CUDA card by default (the constructor raises without one), or
 ``device="cpu"``. ``dtype`` defaults to float32 on the card and float64 on
 the host.
 
 ``mesh=`` (a ``parallel.mesh.Mesh``: one process per rank over
-``torch.distributed``) runs the model pencil-distributed: the state holds
-this rank's blocks, ``set_q``/``set_phi`` take the global array on every
-rank and keep the local block, and ``m.q``, ``m.phi`` and the diagnostics
-return global values on every rank (the field properties gather, so every
-rank calls them together).
+``torch.distributed``) runs the CoupledModel pencil-distributed (the other
+four models raise on it): the state holds this rank's blocks,
+``set_q``/``set_phi`` take the global array on every rank and keep the
+local block, and ``m.q``, ``m.phi`` and the diagnostics return global
+values on every rank (the field properties gather, so every rank calls
+them together).
 
 Not ported yet (ROADMAP.md, queue 1): output to disk (``save_to_disk``),
-``run_with_snapshots``, checkpoints, and the UnCoupled, QL, YBJ and QG
-models.
+``run_with_snapshots`` and checkpoints (item 6), and the UnCoupled, QL,
+YBJ and QG models on a mesh (item 11).
 """
 
 from __future__ import annotations
@@ -32,6 +35,12 @@ from .device import default_dtype, resolve_device
 from .diagnostics import SeriesAccumulator
 from .models.coupled import CoupledPhysics
 from .models.kernel import KernelParams, WaveKernel
+from .models.qg import QGKernel, QGParams
+from .models.ql import QLPhysics
+from .models.uncoupled import UnCoupledPhysics
+from .models.ybj import YBJKernel
+
+_NO_IO = "save_to_disk is not ported yet (ROADMAP.md, queue 1, item 6)"
 
 
 def _make_sharded_transform(nx, dtype, mesh, backend, opts=None):
@@ -71,6 +80,11 @@ def _make_logger(name: str, loglevel: int = 10) -> logging.Logger:
     logger.setLevel(loglevel)
     logger.propagate = False
     return logger
+
+
+def _no_mesh(model) -> str:
+    return (f"{type(model).__name__} on a mesh is not ported yet (ROADMAP.md, "
+            "queue 1, item 11)")
 
 
 class _ModelBase:
@@ -200,19 +214,47 @@ class _ModelBase:
         """Restrict which diagnostics are evaluated and accumulated."""
         self.registry.set_active(names)
 
+    def _np(self, t):
+        """A physical field on the host, gathered over the mesh."""
+        if self._mesh is not None:
+            t = self._mesh.gather_rows(t)
+        return t.detach().cpu().numpy()
+
+    def _check_field(self, a, name):
+        shape = (self.nx, self.nx)
+        if a.shape != shape:
+            raise ValueError(f"set_{name}: expected shape {shape}, "
+                             f"got {a.shape}")
+        return a
+
     # -- run loop ----------------------------------------------------------
+    @property
+    def _stale_grads(self) -> bool:
+        """True in the UnCoupled ``faithful_quirks`` mode: the wave
+        gradients are refreshed on the reference's diagnostics and status
+        cadence, never inside a step."""
+        physics = getattr(self.kernel, "physics", None)
+        return bool(getattr(physics, "stale_phi_gradients", False))
+
     def _step_forward(self):
         """One step + the diagnostics and status cadence: diagnostics are
         sampled when the *pre-step* counter hits ``tdiags`` and record the
-        pre-step time; the status line prints every ``twrite`` steps."""
+        pre-step time; the status line prints every ``twrite`` steps. In
+        the stale-gradient mode each of the two refreshes the wave
+        gradients after it has read them, as the reference's
+        ``_calc_pe_niw`` does (``run_steps`` refreshes nothing)."""
         p = self.params
         tc_before = self.state.tc
         t_prev = self.state.t
         self.state = self.kernel.step(self.state)
         if tc_before % p.tdiags == 0:
             self._diag_acc.append(self._diag_fn(self.state, t_prev))
+            if self._stale_grads:
+                self.state = self.kernel.refresh_phi_gradients(self.state)
         if (tc_before + 1) % p.twrite == 0:
             self._print_status()
+            if self._stale_grads:
+                self.state = self.kernel.refresh_phi_gradients(self.state)
 
     def run(self):
         """Run to ``tmax`` with the reference's per-step cadence."""
@@ -240,6 +282,7 @@ class _WaveModel(_ModelBase):
 
     _physics_factory = None
     _registry_factory = staticmethod(diag_mod.wave_kernel_registry)
+    _runs_on_mesh = False  # only the CoupledModel is ported to a mesh
 
     def __init__(self, nx=128, ny=None, L=5e5, dt=10000.0, twrite=1000,
                  tmax=250000.0, use_filter=True, cflmax=0.8, U=0.0, f=1.0e-4,
@@ -252,8 +295,9 @@ class _WaveModel(_ModelBase):
                  spectral_budgets=True, device=None, **kernel_kwargs):
         del ny, overwrite, path, snapshot_format  # ny is ignored as in the reference
         if save_to_disk:
-            raise NotImplementedError(
-                "save_to_disk is not ported yet (ROADMAP.md, queue 1, item 6)")
+            raise NotImplementedError(_NO_IO)
+        if mesh is not None and not self._runs_on_mesh:
+            raise NotImplementedError(_no_mesh(self))
         self.device = resolve_device(device)
         self._mesh = mesh
         if mesh is not None:
@@ -306,12 +350,6 @@ class _WaveModel(_ModelBase):
                    **kw)
 
     # -- state access (host numpy copies, global on every rank) ------------
-    def _np(self, t):
-        """A physical field on the host, gathered over the mesh."""
-        if self._mesh is not None:
-            t = self._mesh.gather_rows(t)
-        return t.detach().cpu().numpy()
-
     def _np_spec(self, t):
         """A spectral field on the host, gathered over the mesh."""
         if self._mesh is not None:
@@ -382,13 +420,6 @@ class _WaveModel(_ModelBase):
     def Kw(self):
         return float(self.state.Kw.item())
 
-    def _check_field(self, a, name):
-        shape = (self.nx, self.nx)
-        if a.shape != shape:
-            raise ValueError(f"set_{name}: expected shape {shape}, "
-                             f"got {a.shape}")
-        return a
-
     def set_q(self, q):
         # a copy: the state holds the value at call time
         q = self._check_field(np.array(q, dtype=self.kernel.dtype), "q")
@@ -401,6 +432,13 @@ class _WaveModel(_ModelBase):
     def _diag_fn(self, state, t_prev):
         K = self.kernel
         src = K.stage_sources(state.qh, state.phih, state.d)
+        if self._stale_grads:
+            # the reference's diagnostics refresh phix/phiy part way
+            # through (pe_niw), so ep_phi and chi_phi, evaluated after it,
+            # see fresh gradients while gamma/xi read the stale ones
+            d2 = K.refresh_phi_gradients(state).d
+            fresh = K.stage_sources(state.qh, state.phih, d2)
+            src = src._replace(ep_phi=fresh.ep_phi, chi_phi=fresh.chi_phi)
         aux = {"time": t_prev, "src": src}
         return self.registry.evaluate(K, state, aux)
 
@@ -428,6 +466,7 @@ class CoupledModel(_WaveModel):
     model = " Coupled Model"
     _physics_factory = staticmethod(CoupledPhysics)
     _registry_factory = staticmethod(diag_mod.coupled_registry)
+    _runs_on_mesh = True
 
     def _diag_fn(self, state, t_prev):
         K = self.kernel
@@ -436,3 +475,184 @@ class CoupledModel(_WaveModel):
         aux = {"time": t_prev, "src": src, "ke_qg_q": q_, "ke_qg_w": w_,
                "ke_qg_qw": qw_}
         return self.registry.evaluate(K, state, aux)
+
+
+class UnCoupledModel(_WaveModel):
+    """YBJ waves on an evolving flow.
+
+    ``faithful_quirks=True`` (default: defaults reproduce the reference as
+    it runs) keeps the reference's stale-gradient cadence;
+    ``faithful_quirks=False`` recomputes the wave gradients every stage
+    (see ``models/uncoupled.py``)."""
+
+    model = " Uncoupled Model"
+    _physics_factory = staticmethod(UnCoupledPhysics)
+
+    def __init__(self, *args, faithful_quirks=None, **kwargs):
+        defaulted = faithful_quirks is None
+        if defaulted:
+            faithful_quirks = True
+        if faithful_quirks:
+            self._physics_factory = (
+                lambda: UnCoupledPhysics(faithful_quirks=True))
+        super().__init__(*args, **kwargs)
+        if defaulted:
+            self.logger.info(
+                " faithful_quirks defaulting to True (reference-parity "
+                "stale-gradient cadence); pass faithful_quirks=False for "
+                "the corrected per-stage gradients")
+
+
+class QLModel(_WaveModel):
+    """Quasilinear coupled model.
+
+    The reference QLModel crashes at construction, so there is no
+    as-shipped trajectory to follow: the default is the intended
+    quasilinear physics. ``faithful_quirks=True`` reproduces the repaired
+    reference bug for bug (see ``models/ql.py``); its never-updated
+    ``self.q`` shows as a frozen ``m.q`` and a frozen ``ens``
+    diagnostic."""
+
+    model = " Quasilinear Model"
+    _physics_factory = staticmethod(QLPhysics)
+
+    def __init__(self, *args, faithful_quirks: bool = False, **kwargs):
+        self._faithful = bool(faithful_quirks)
+        if faithful_quirks:
+            self._physics_factory = lambda: QLPhysics(faithful_quirks=True)
+            # the reference's ens reads the frozen self.q, here q_psi
+            reg = diag_mod.wave_kernel_registry()
+            reg.add("ens", "Quasigeostrophic Potential Enstrophy", r"s^{-2}",
+                    function=lambda K, s, aux: K.ens(s.d.q_psi))
+            self._registry_factory = lambda: reg
+        super().__init__(*args, **kwargs)
+
+    @property
+    def q(self):
+        if self._faithful:
+            # the reference's self.q is never updated after set_q
+            return self._np(self.state.d.q_psi)
+        return self._np(self.state.d.q)
+
+
+class YBJModel(_WaveModel):
+    """Waves on a steady flow (``faithful_quirks=True`` by default)."""
+
+    model = " YBJ Model (Steady QG flow)"
+
+    def _make_kernel(self, dtype, backend, precision, faithful_quirks=True,
+                     transform_opts=None, fold_filter=False):
+        return YBJKernel(self.params, faithful_quirks=faithful_quirks,
+                         dtype=dtype, backend=backend, precision=precision,
+                         transform_opts=transform_opts,
+                         fold_filter=fold_filter, device=self.device)
+
+
+class QGModel(_ModelBase):
+    """Standalone barotropic QG model, with an optional passive scalar."""
+
+    model = " QG Model"
+
+    def __init__(self, nx=128, ny=None, L=5e5, dt=10000.0, twrite=1000,
+                 tswrite=10, tmax=250000.0, use_filter=True, U=0.0,
+                 nu4=5.0e9, nu=0, mu=0, beta=0, passive_scalar=False,
+                 nu4c=5.0e9, nuc=0, muc=0, dealias=False, save_to_disk=False,
+                 overwrite=True, tsave_snapshots=10, tdiags=10,
+                 path="output/", dtype=None, backend="auto",
+                 precision="auto", mesh=None, transform_opts=None,
+                 spectral_budgets=True, fold_filter=False, device=None):
+        del ny, tswrite, overwrite, path
+        if save_to_disk:
+            raise NotImplementedError(_NO_IO)
+        if mesh is not None:
+            raise NotImplementedError(_no_mesh(self))
+        self.device = resolve_device(device)
+        self._mesh = None
+        self.params = QGParams(
+            nx=nx, L=L, dt=dt, tmax=tmax, twrite=int(twrite), cflmax=0.5,
+            U=U, beta=beta, nu4=nu4, nu=nu, mu=mu,
+            passive_scalar=passive_scalar, nu4c=nu4c, nuc=nuc, muc=muc,
+            use_filter=use_filter, dealias=dealias, tdiags=tdiags,
+            tsave_snapshots=tsave_snapshots,
+            spectral_budgets=spectral_budgets,
+        )
+        dtype = dtype or default_dtype(self.device)
+        self.kernel = QGKernel(self.params, dtype=dtype, backend=backend,
+                               precision=precision,
+                               transform_opts=transform_opts,
+                               fold_filter=fold_filter, device=self.device)
+        self.state = self.kernel.zero_state()
+        self._init_services(diag_mod.qg_registry())
+
+    # -- state access (host numpy copies) ------------------------------------
+    @property
+    def q(self):
+        return self._np(self.state.q)
+
+    @property
+    def c(self):
+        return self._np(self.state.c)
+
+    @property
+    def p(self):
+        return self._np(self.state.p)
+
+    @property
+    def qh(self):
+        return self._np(self.state.qh)
+
+    @property
+    def ch(self):
+        return self._np(self.state.ch)
+
+    @property
+    def ph(self):
+        return self._np(self.state.ph)
+
+    @property
+    def Ke(self):
+        return float(self.state.Ke.item())
+
+    @property
+    def cvar(self):
+        return float(self.state.cvar.item())
+
+    def set_q(self, q):
+        # a copy: the state holds the value at call time
+        q = self._check_field(np.array(q, dtype=self.kernel.dtype), "q")
+        self.state = self.kernel.apply_set_q(self.state, q)
+
+    def set_c(self, c):
+        """The real part of ``c`` (a complex field's imaginary part is
+        dropped, as the reference's ``rfft2`` did)."""
+        c = self._check_field(np.real(np.asarray(c)).astype(self.kernel.dtype),
+                              "c")
+        self.state = self.kernel.apply_set_c(self.state, c)
+
+    def _diag_fn(self, state, t_prev):
+        K = self.kernel
+        aux = {"time": t_prev}
+        if self.params.passive_scalar:
+            C2, gradC2, lapc, Gamma_c = K._scalar_derived(state.ch, state.u,
+                                                          state.v, state.c)
+            aux.update(C2=C2, gradC2=gradC2, Gamma_c=Gamma_c,
+                       ep_c=K.ep_c(C2, gradC2, lapc),
+                       chi_c=K.chi_c(state.ch, gradC2, lapc))
+        else:
+            zero = state.Ke * 0.0
+            aux.update(C2=zero, gradC2=zero, Gamma_c=zero, ep_c=zero,
+                       chi_c=zero)
+        return self.registry.evaluate(K, state, aux)
+
+    def _print_status(self):
+        """Status line + CFL guard (``cflmax=0.5``)."""
+        K, s = self.kernel, self.state
+        ke, cfl = torch.stack([K.ke_qg(s.ph), K.cfl(s)]).tolist()
+        self.logger.info(
+            "Step: %i, Time: %4.3e, P: %4.3e , Ke: %4.3e, CFL: %4.3f",
+            self.tc, self.t, self.t / self.params.tmax, ke, cfl,
+        )
+        if not (cfl < self.params.cflmax):  # survives python -O
+            self.logger.error("CFL condition violated")
+            raise AssertionError(f"CFL condition violated: {cfl:.3f} >= "
+                                 f"{self.params.cflmax}")

@@ -10,7 +10,11 @@ so the state is the only thing carried.
 
 Both the full-spectrum q side and the fast kernel's ``q_half`` layout are
 taken; a q-side spectrum in the other layout than the kernel's is
-converted (Hermitian expansion or projection).
+converted (Hermitian expansion or projection). The same two functions
+carry every wave model's state (Coupled, UnCoupled, QL — whose q side is
+always full-spectrum — and YBJ with its frozen flow fields) and the QG
+model's ``QGState`` (half-spectrum ``qh``/``ch``/``ph``; pass a
+``QGKernel``).
 
 On a mesh the numpy side stays global: :func:`state_from_numpy` cuts the
 global state to this rank's shards (every rank is handed the same global
@@ -23,7 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.kernel import Derived, WaveKernel, WaveState
+from .models.kernel import Derived, WaveState
+from .models.qg import QGKernel, QGState
 from .ops.spectral import expand_half_to_full, project_full_to_half
 from .parallel.mesh import gather_wave_state, map_state, shard_wave_state
 
@@ -41,8 +46,25 @@ def _host_complex(x):
     return np.array(x)
 
 
-def state_from_numpy(kernel: WaveKernel, s) -> WaveState:
-    """A port ``WaveState`` for ``kernel`` from a numpy-valued state."""
+def _qg_state_from_numpy(kernel: QGKernel, s) -> QGState:
+    dev, rd, cd = kernel.device, kernel.rdtype, kernel.cdtype
+    fields = {}
+    for name in QGState._fields:
+        v = _get(s, name)
+        if name == "tc":
+            fields[name] = int(np.asarray(v))
+        elif name in ("qh", "ch", "ph"):
+            fields[name] = torch.as_tensor(_host_complex(v)).to(dev, cd)
+        else:
+            fields[name] = torch.as_tensor(np.array(v)).to(dev, rd)
+    return QGState(**fields)
+
+
+def state_from_numpy(kernel, s):
+    """A port state for ``kernel`` (a ``WaveState``, or a ``QGState`` for
+    a ``QGKernel``) from a numpy-valued state."""
+    if isinstance(kernel, QGKernel):
+        return _qg_state_from_numpy(kernel, s)
     dev, rd, cd = kernel.device, kernel.rdtype, kernel.cdtype
     half = getattr(kernel, "q_half", False)
     nk_half = kernel.params.nx // 2 + 1
@@ -85,14 +107,18 @@ def state_from_numpy(kernel: WaveKernel, s) -> WaveState:
     return state
 
 
-def state_to_numpy(s: WaveState, mesh=None) -> dict:
+def state_to_numpy(s, mesh=None) -> dict:
     """The port's state as numpy: ``{"t", "tc", "qh", "phih", "Ke", "Pw",
-    "Kw", "d": {Derived field: array or None}}``; with ``mesh=`` the
-    global state gathered from every rank's shards."""
-    s = gather_wave_state(s, mesh)
-
+    "Kw", "d": {Derived field: array or None}}``, with ``mesh=`` the
+    global state gathered from every rank's shards; a ``QGState`` gives
+    ``{field: array}`` with ``tc`` an int."""
     def host(x):
         return None if x is None else x.detach().cpu().numpy()
+
+    if isinstance(s, QGState):
+        return {k: (int(v) if k == "tc" else host(v))
+                for k, v in s._asdict().items()}
+    s = gather_wave_state(s, mesh)
 
     return {"t": host(s.t), "tc": int(s.tc), "qh": host(s.qh),
             "phih": host(s.phih), "Ke": host(s.Ke), "Pw": host(s.Pw),

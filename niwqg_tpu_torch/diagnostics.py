@@ -153,3 +153,36 @@ def coupled_registry() -> Registry:
     r.add("ke_qg_qw", "Quasigeostrophic Kinetic Energy, cross-term q-w",
           r"m^2 s^{-2}", function=lambda K, s, aux: aux["ke_qg_qw"])
     return r
+
+
+# ----------------------------------------------------------------------
+# QG-model diagnostics
+# ----------------------------------------------------------------------
+def qg_registry() -> Registry:
+    r = Registry()
+    add = r.add
+    add("time", "Time", "seconds", function=lambda K, s, aux: aux["time"])
+    add("ke_qg", "Quasigeostrophic Kinetic Energy", r"m^2 s^{-2}",
+        function=lambda K, s, aux: K.ke_qg(s.ph))
+    add("Ke", "Quasigeostrophic Kinetic Energy, from energy equation",
+        r"m^2 s^{-2}", function=lambda K, s, aux: s.Ke)
+    add("ens", "Quasigeostrophic Potential Enstrophy", r"s^{-2}",
+        function=lambda K, s, aux: 0.5 * (s.q**2).mean())
+    add("ep_psi", "The hyperviscous dissipation of QG kinetic energy",
+        r"$m^2 s^{-3}$",
+        function=lambda K, s, aux: K.ep_psi(s.q, s.p, s.qh, s.ph))
+    add("chi_q", "The hyperviscous dissipation of QG kinetic energy",
+        r"$s^{-3}$", function=lambda K, s, aux: K.chi_q(s.qh))
+    add("C2", "Passive tracer variance", r"[scalar]^2",
+        function=lambda K, s, aux: aux["C2"])
+    add("cvar", "Passive tracer variance, from variance equation",
+        r"[scalar]^2", function=lambda K, s, aux: s.cvar)
+    add("gradC2", "Gradient of Passive tracer variance", r"[scalar]^2 / m^2",
+        function=lambda K, s, aux: aux["gradC2"])
+    add("Gamma_c", "Rate of generation of passive tracer gradient variance",
+        r"[scalar]^2 / (m^2 s)", function=lambda K, s, aux: aux["Gamma_c"])
+    add("ep_c", "The dissipation of tracer variance", r"$s^{-3}$",
+        function=lambda K, s, aux: aux["ep_c"])
+    add("chi_c", "The dissipation of tracer gradient variance", r"$s^{-3}$",
+        function=lambda K, s, aux: aux["chi_c"])
+    return r

@@ -190,3 +190,11 @@ def linear_operator_phi(grid: Grid, U: float, f: float, kappa2: float,
         - muw
     )
     return c
+
+
+def linear_operator_c(grid: Grid, nu4c: float, nuc: float,
+                      muc: float) -> np.ndarray:
+    """Linear operator of the passive-scalar equation."""
+    c = np.zeros((grid.nl, grid.nk), np.complex128)
+    c += -nu4c * grid.wv4_np - nuc * grid.wv2_np - muc
+    return c

@@ -66,6 +66,25 @@ def McWilliams1984(model, k0=6, E=0.5, seed=None):
     return np.real(_ifft(model, qih))
 
 
+def Danioux2015(model, k0=6, E=0.5, seed=None):
+    """Single-wavenumber random vorticity."""
+    wv, wv2, _, _, _ = _wv(model)
+    ckappa = np.zeros_like(wv2)
+    nhx, nhy = wv2.shape
+    kc2 = k0**2
+    fk = wv != 0
+    ckappa[fk] = np.sqrt(wv[fk] * np.exp(-(wv2[fk] / kc2)))
+
+    rng = np.random.default_rng(seed)
+    phase = rng.random((nhx, nhy)) * 2 * np.pi
+    ph = ckappa * np.cos(phase) + 1j * ckappa * np.sin(phase)
+    ph = _fft(model, np.real(_ifft(model, ph)))
+    Eaux = 0.5 * _spec_var(model, wv * ph)
+    pih = np.sqrt(E / Eaux) * ph
+    qih = -wv2 * pih
+    return np.real(_ifft(model, qih))
+
+
 def LambDipole(model, U=0.01, R=1.0):
     """Lamb's dipole vorticity field."""
     _, _, x, y, N = _wv(model)

@@ -187,14 +187,27 @@ class FastWaveKernel(WaveKernel):
 
     @property
     def _spectral_src(self) -> bool:
-        return self.params.spectral_budgets
+        # The stale-gradient mode keeps the physical-space sources: by
+        # Parseval the gradient quadratics would see the fresh phih, where
+        # the reference integrates the stale phix/phiy. So does the frozen
+        # q_psi: ep_psi then mixes the frozen q with the current ph, which
+        # one Re(conj(qh) ph) reduction cannot express.
+        return (self.params.spectral_budgets
+                and not self.physics.stale_phi_gradients
+                and not self.physics.stale_q_psi)
 
     # ------------------------------------------------------------------
     def derive(self, qh, phih, prev=None) -> Derived:
         g = self.grid
         pg = self.tr.ifft2(torch.stack([phih, mul_i(phih, g.k),
                                         mul_i(phih, g.l)]))
-        return self._invert_core(qh, pg[0], pg[1], pg[2])
+        phix, phiy = pg[1], pg[2]
+        if self.physics.stale_phi_gradients and prev is not None:
+            phix, phiy = prev.phix, prev.phiy
+        D = self._invert_core(qh, pg[0], phix, phiy)
+        if self.physics.stale_q_psi and prev is not None:
+            D = D._replace(q_psi=prev.q_psi)  # frozen at the set_q value
+        return D
 
     def _project_mirror_cols(self, z):
         return spectral.hermitian_project_half(z, self.params.nx,
@@ -217,6 +230,8 @@ class FastWaveKernel(WaveKernel):
             fj = self._fwd_real(torch.stack([abs2(phi), jmul(z).real]))
             gphi2h = fj[0] * (-qt.wv2)
             jach = spectral.zero_mean_mode(fj[1], self.grid.owns_mean_mode)
+            if self.physics.wave_pv_imag_jac:
+                jach = jmul(jach)  # the reference QL transcription bug
             qwh = ((0.5 * gphi2h + jach) * 0.5 / p.f) * qt.filtr
         else:
             qwh = torch.zeros_like(qh)
@@ -241,11 +256,25 @@ class FastWaveKernel(WaveKernel):
     # ------------------------------------------------------------------
     # shared RHS products (also feed the spectral budget sources)
     # ------------------------------------------------------------------
-    def _wave_products(self, D: Derived):
-        """``fft(J(psi, phi))`` and ``fft(phi*q_psi)`` in one batch."""
+    def _wave_products(self, qh, D: Derived):
+        """Forward transforms of the stage's nonlinear products, in one
+        batch: ``fft(J_adv)`` (the advection entering the phi RHS),
+        ``fft(phi*q_psi)`` (refraction, before ``0.5j``) and ``fft(J_full)``,
+        the Jacobian by the full geostrophic flow that the budget sources
+        read. They are one field unless the waves are advected by the
+        vortex flow alone (QL), whose velocities come from ``qh``."""
+        refr = D.phi * D.q_psi
         j_full = D.phix * D.u + D.phiy * D.v
-        nlc = self.tr.fft2(torch.stack([j_full, D.phi * D.q_psi]))
-        return nlc[0], nlc[1]
+        if not self.physics.advect_by_vortex_flow:
+            nlc = self.tr.fft2(torch.stack([j_full, refr]))
+            return nlc[0], nlc[1], nlc[0]
+        qt = self.qtab
+        ph_q = -(qh * qt.wv2i)
+        uv = self._inv_real(torch.stack([mul_i(ph_q, -self._l_dy),
+                                         mul_i(ph_q, qt.k)]))
+        j_adv = D.phix * uv[0] + D.phiy * uv[1]
+        nlc = self.tr.fft2(torch.stack([j_adv, refr, j_full]))
+        return nlc[0], nlc[1], nlc[2]
 
     def _rhs_from_products(self, D: Derived, jacwh_raw, refrh_raw):
         qt = self.qtab
@@ -259,8 +288,8 @@ class FastWaveKernel(WaveKernel):
         return -jacq, -jacwh - jmul(refrh_raw, 0.5)
 
     def stage_terms(self, qh, phih, D: Derived, want_sources: bool):
-        jh, refrh = self._wave_products(D)
-        Fn, Fnw = self._rhs_from_products(D, jh, refrh)
+        jadv, refrh, jh = self._wave_products(qh, D)
+        Fn, Fnw = self._rhs_from_products(D, jadv, refrh)
         if not want_sources:
             parts = None
         elif self._spectral_src:
@@ -270,7 +299,8 @@ class FastWaveKernel(WaveKernel):
         return Fn, Fnw, parts
 
     def nonlinear(self, qh, D: Derived):
-        return self._rhs_from_products(D, *self._wave_products(D))
+        jadv, refrh, _ = self._wave_products(qh, D)
+        return self._rhs_from_products(D, jadv, refrh)
 
     # ------------------------------------------------------------------
     # budget sources
@@ -278,7 +308,7 @@ class FastWaveKernel(WaveKernel):
     def stage_source_parts(self, qh, phih, D: Derived) -> torch.Tensor:
         """Standalone source evaluation (diagnostics cadence)."""
         if self._spectral_src:
-            jh, refrh = self._wave_products(D)
+            _, refrh, jh = self._wave_products(qh, D)
             return self._spectral_source_parts(qh, phih, D, refrh, jh)
         return self._batched_source_parts(qh, phih, D)
 

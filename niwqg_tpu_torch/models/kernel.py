@@ -131,7 +131,23 @@ class WavePhysics:
       has_wave_pv       — the inversion carries a wave PV qwh
       subtracts_wave_pv — relative vorticity is q - qw
       hermitian_ph      — the inversion Hermitian-projects ph (the
-                          reference's ``fft(real(ifft(.)))`` sandwich)
+                          reference's ``fft(real(ifft(.)))`` sandwich); QL
+                          keeps ph raw
+      advect_by_vortex_flow — waves advected by the vortex-part velocities
+                          only (quasilinear)
+
+    Reference quirks, reproduced bug for bug where a model asks for them:
+      stale_phi_gradients — UnCoupled: the wave gradients are refreshed
+                          only on the diagnostics and status cadence
+                          (:meth:`WaveKernel.refresh_phi_gradients`), never
+                          per stage
+      wave_pv_imag_jac  — QL: the wave-PV Jacobian term enters as
+                          ``1j*jach``
+      stale_q_psi       — QL: ``q_psi`` stays the vorticity ``set_q`` gave
+                          (the advection Jacobian still reads the evolving
+                          ``q``)
+      jac_reads_updated_qh — QL: the wave advection of a stage reads the
+                          ``qh`` that stage has just updated, not its input
     """
 
     name = "wave"
@@ -139,6 +155,11 @@ class WavePhysics:
     has_wave_pv = False
     subtracts_wave_pv = False
     hermitian_ph = True
+    advect_by_vortex_flow = False
+    stale_phi_gradients = False
+    wave_pv_imag_jac = False
+    stale_q_psi = False
+    jac_reads_updated_qh = False
 
     def invert(self, K: "WaveKernel", qh, phih, phi) -> Derived:
         raise NotImplementedError
@@ -244,8 +265,20 @@ class WaveKernel:
     def derive(self, qh, phih, prev: Optional[Derived] = None) -> Derived:
         phi = self.tr.ifft2(phih)
         D = self.physics.invert(self, qh, phih, phi)
+        if self.physics.stale_phi_gradients and prev is not None:
+            # keep the carried gradients: refreshes come only from
+            # refresh_phi_gradients on the reference's cadence
+            D = D._replace(phix=prev.phix, phiy=prev.phiy)
+        if self.physics.stale_q_psi and prev is not None:
+            D = D._replace(q_psi=prev.q_psi)  # frozen at the set_q value
         u, v = spectral.velocities(self.tr, self.grid, D.ph)
         return D._replace(u=u, v=v)
+
+    def refresh_phi_gradients(self, s: WaveState) -> WaveState:
+        """The state change hidden in the reference's ``_calc_pe_niw``:
+        the wave gradients recomputed from the current ``phih``."""
+        phix, phiy = spectral.gradients(self.tr, self.grid, s.phih)
+        return s._replace(d=s.d._replace(phix=phix, phiy=phiy))
 
     # ------------------------------------------------------------------
     # per-stage computation: budget sources + nonlinear terms
@@ -281,10 +314,13 @@ class WaveKernel:
         J_diss_phi = -(diss_phi * J_psi_phi.conj()).imag
         L_diss_phi = 0.5 * (diss_phi * phi.conj()).real * q_psi
         divFw = 0.5 * p.hslash * (phi.conj() * lapphi).imag
+        # ep_psi reads the reference's ``self.q``, which QL never
+        # refreshes (stale_q_psi): there the frozen field is q_psi
+        q_eps = q_psi if self.physics.stale_q_psi else D.q
         return self._lmeans(
             0.5 * q_psi * divFw, (lapphi.conj() * J_psi_phi).real,
             J_diss_phi, L_diss_phi, phi, phi.conj() * q_psi,
-            D.q * lap2psi, D.p * lapq, D.p * D.q,
+            q_eps * lap2psi, D.p * lapq, D.p * q_eps,
             abs2(lphix) + abs2(lphiy), abs2(lapphi),
             abs2(phix) + abs2(phiy), abs2(phi))
 
@@ -344,11 +380,20 @@ class WaveKernel:
         mulf = self._mulf
         dt = self._s(self.params.dt)
         want = self.params.compute_budgets
+        # QL stage-ordering quirk (jac_reads_updated_qh): the wave RHS is
+        # re-evaluated on the just-updated qh, and that Fnw replaces the
+        # stage-input one everywhere it is reused
+        skew = self.physics.jac_reads_updated_qh
+
+        def reFnw(qh_new, D_):
+            return self.nonlinear(qh_new, D_)[1]
 
         # stage 1 (sources from the carried state)
         Fn0, Fn0w, src1 = self.stage_terms(s.qh, s.phih, s.d, want)
         qh0, phih0 = s.qh, s.phih
         qh = mulf(cq.expch_h * qh0 + Fn0 * cq.Qh, fq)
+        if skew:
+            Fn0w = reFnw(qh, s.d)
         phih = mulf(cw.expch_h * phih0 + Fn0w * cw.Qh, fw)
         qh1, phih1 = qh, phih
         D = self.derive(qh, phih, s.d)
@@ -356,12 +401,16 @@ class WaveKernel:
         # stage 2
         Fna, Fnaw, src2 = self.stage_terms(qh, phih, D, want)
         qh = mulf(cq.expch_h * qh0 + Fna * cq.Qh, fq)
+        if skew:
+            Fnaw = reFnw(qh, D)
         phih = mulf(cw.expch_h * phih0 + Fnaw * cw.Qh, fw)
         D = self.derive(qh, phih, D)
 
         # stage 3
         Fnb, Fnbw, src3 = self.stage_terms(qh, phih, D, want)
         qh = mulf(cq.expch_h * qh1 + (2.0 * Fnb - Fn0) * cq.Qh, fq)
+        if skew:
+            Fnbw = reFnw(qh, D)
         phih = mulf(cw.expch_h * phih1 + (2.0 * Fnbw - Fn0w) * cw.Qh, fw)
         D = self.derive(qh, phih, D)
 
@@ -369,6 +418,8 @@ class WaveKernel:
         Fnc, Fncw, src4 = self.stage_terms(qh, phih, D, want)
         qh = mulf(cq.expch * qh0 + Fn0 * cq.f0 + 2.0 * (Fna + Fnb) * cq.fab
                   + Fnc * cq.fc, fq)
+        if skew:
+            Fncw = reFnw(qh, D)
         phih = mulf(cw.expch * phih0 + Fn0w * cw.f0
                     + 2.0 * (Fnaw + Fnbw) * cw.fab + Fncw * cw.fc, fw)
 
@@ -481,3 +532,19 @@ class WaveKernel:
         phimax = torch.sqrt(abs2(s.d.phi).max())
         return spectral.cfl_number(s.d.u, s.d.v, phimax, self.params.dt,
                                    self.grid.dx, self.mesh)
+
+    def strain(self, ph):
+        """Geostrophic rate of strain squared."""
+        g = self.qtab
+        pxx = self._inv_real(ph * (-g.k * g.k))
+        pyy = self._inv_real(ph * (-g.l * g.l))
+        # k*l is odd in l: the y-derivative table (its half-layout
+        # Hermitian representative at the Nyquist row)
+        pxy = self._inv_real(ph * (-g.k * self._l_dy))
+        return 4.0 * pxy**2 + (pxx - pyy) ** 2
+
+    def okubo_weiss(self, s: WaveState):
+        """Okubo–Weiss parameter: squared strain minus squared relative
+        vorticity (the reference's never-called ``_calc_OW`` squares the
+        already squared strain; corrected here, as in the JAX package)."""
+        return self.strain(s.d.ph) - s.d.q_psi**2

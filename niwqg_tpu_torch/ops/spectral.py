@@ -113,15 +113,22 @@ def gradients(tr, grid, zh: torch.Tensor):
     return tr.ifft2(mul_i(zh, grid.k)), tr.ifft2(mul_i(zh, grid.l))
 
 
-def wave_pv_hat(tr, grid, f: float, phi, phix, phiy):
+def wave_pv_hat(tr, grid, f: float, phi, phix, phiy,
+                imag_jac: bool = False):
     """Wave potential vorticity ``qwh = 0.5*(0.5*gphi2h + J(phi*,phi)hat)/f``
     with ``gphi2h = -wv2*fft(|phi|^2)`` and the Jacobian term
     ``fft((1j*(conj(phix)*phiy - conj(phiy)*phix)).real)``, mean mode
-    zeroed. The caller applies the filter."""
+    zeroed. The caller applies the filter.
+
+    ``imag_jac=True`` reproduces the reference QL transcription bug: the
+    Jacobian term enters as ``1j*jach`` (anti-Hermitian) instead of
+    ``jach``."""
     gphi2h = tr.fft2_real(abs2(phi)) * (-grid.wv2)
     z = phix.conj() * phiy - phiy.conj() * phix
     jach = zero_mean_mode(tr.fft2_real(-z.imag),  # (1j*z).real
                           grid.owns_mean_mode)
+    if imag_jac:
+        jach = jmul(jach)
     return (0.5 * gphi2h + jach) * 0.5 / f
 
 

@@ -12,24 +12,25 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
 
 from niwqg_tpu import CoupledModel as JCoupled  # noqa: E402
 from niwqg_tpu import InitialConditions as jic  # noqa: E402
-from niwqg_tpu.carray import C  # noqa: E402
-from niwqg_tpu.models import kernel as jkernel  # noqa: E402
 from niwqg_tpu.ops import pallas_mm  # noqa: E402
 from niwqg_tpu_torch import CoupledModel as TCoupled  # noqa: E402
 from niwqg_tpu_torch import InitialConditions as tic  # noqa: E402
+from niwqg_tpu_torch import api as torch_api  # noqa: E402
 from niwqg_tpu_torch.api import CoupledModel as TCoupledModel  # noqa: E402
 from niwqg_tpu_torch.convert import state_from_numpy, state_to_numpy  # noqa: E402
 from niwqg_tpu_torch.models.fast_kernel import FastWaveKernel  # noqa: E402
 from niwqg_tpu_torch.ops import csplit_mm  # noqa: E402
 
+from _torch_common import K1_OPTS  # noqa: E402
+from _torch_common import flagship as _flagship  # noqa: E402
+from _torch_common import jax_wave_state as _jax_state  # noqa: E402
+from _torch_common import rel as _rel  # noqa: E402
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = np.load(os.path.join(ROOT, "tests", "fixtures", "trajectory.npz"))
-K1_OPTS = dict(use_pallas=True, formulation="swap", factors=None,
-               half_factors=None)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -42,10 +43,6 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _rel(a, b):
-    return np.abs(np.asarray(a) - np.asarray(b)).max() / np.abs(b).max()
-
-
 def _fixture_model(mod, ic, **kw):
     """``tests/test_fixture_trajectory.py``'s coupled configuration."""
     m = mod.Model(L=2 * np.pi * 200e3, nx=64, dt=10000.0, tmax=10000.0 * 20,
@@ -54,19 +51,6 @@ def _fixture_model(mod, ic, **kw):
     q = ic.McWilliams1984(m, k0=6, E=2.5e-4, seed=11)
     m.set_q(q)
     m.set_phi((np.ones_like(q) + 1j) * 0.05 / np.sqrt(2))
-    return m
-
-
-def _flagship(mod, ic, nx, **kw):
-    """The flagship's physics (``__graft_entry__._build_coupled``)."""
-    U0 = 0.05
-    m = mod.Model(L=2 * np.pi * 200e3, nx=nx, dt=157.0, tmax=157.0 * 100,
-                  m=1.0 / 325, N=0.005, f=1e-4, use_filter=True, nu4=7.5e9,
-                  nu4w=7.5e9, **kw)
-    k0 = 10 * (2 * np.pi / m.L)
-    q = ic.LambDipole(m, U=U0, R=2 * np.pi / k0)
-    m.set_q(q)
-    m.set_phi((np.ones_like(q) + 1j) * 5 * U0 / np.sqrt(2))
     return m
 
 
@@ -173,21 +157,6 @@ def test_run_diagnostics_match_jax(fast):
         assert np.abs(a - b).max() <= 1e-10 * scale + 1e-20, name
 
 
-def _jax_state(d):
-    """A JAX ``WaveState`` from :func:`state_to_numpy`'s dict."""
-    def leaf(v):
-        if v is None:
-            return None
-        return C.from_complex(v) if np.iscomplexobj(v) else jnp.asarray(v)
-
-    return jkernel.WaveState(
-        t=jnp.asarray(d["t"]), tc=jnp.asarray(d["tc"], jnp.int32),
-        qh=leaf(d["qh"]), phih=leaf(d["phih"]),
-        d=jkernel.Derived(**{k: leaf(v) for k, v in d["d"].items()}),
-        Ke=jnp.asarray(d["Ke"]), Pw=jnp.asarray(d["Pw"]),
-        Kw=jnp.asarray(d["Kw"]))
-
-
 @pytest.mark.parametrize("fast", [False, True])
 def test_convert_round_trip(fast):
     """(e) a JAX state (full or q_half layout) carried into the port and
@@ -243,9 +212,17 @@ def test_kernel_needs_a_card_unless_cpu_is_asked(fast, monkeypatch):
     assert cls(k.params, k.physics, device="cpu").device.type == "cpu"
 
 
-def test_unported_shell_options_raise():
-    with pytest.raises(NotImplementedError):
-        TCoupledModel(nx=16, device="cpu", save_to_disk=True)
+@pytest.mark.parametrize("name", ["CoupledModel", "UnCoupledModel",
+                                  "QLModel", "YBJModel", "QGModel"])
+def test_unported_shell_options_raise(name):
+    model = getattr(torch_api, name)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        model(nx=16, device="cpu", save_to_disk=True)
+    if name != "CoupledModel":
+        # the other four models are not ported to a mesh yet
+        with pytest.raises(NotImplementedError, match="item 11"):
+            model(nx=16, device="cpu", mesh=object())
+        return
     # meshes and pair_inverse are ported: a mesh must be the port's own
     # Mesh, and pair_inverse builds
     with pytest.raises(TypeError, match="Mesh"):
@@ -278,7 +255,8 @@ def test_cfl_guard_raises():
 def test_port_imports_no_jax():
     """The port runs where JAX is absent: importing it pulls in neither
     JAX nor the JAX package."""
-    code = ("import sys, niwqg_tpu_torch.api, niwqg_tpu_torch.convert; "
+    code = ("import sys, niwqg_tpu_torch, niwqg_tpu_torch.api, "
+            "niwqg_tpu_torch.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'niwqg_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

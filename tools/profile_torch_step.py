@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where a step of the PyTorch port's flagship spends its time on the card.
+"""Where a step of the PyTorch port's models spends its time on the card.
 
 Builds the flagship coupled model (``chip_smoke.flagship``) at
 ``--nx`` on the first CUDA card, in one or more configurations:
@@ -11,7 +11,13 @@ Builds the flagship coupled model (``chip_smoke.flagship``) at
           four processes (rank r on card r % device_count), f32 on the
           pencil FFT with K2 as the transpose
           (``transform_opts={"pallas_a2a": True, "overlap_chunks": 2}``);
-          rank 0 is profiled while all four step.
+          rank 0 is profiled while all four step;
+  uncoupled, ql, ybj
+          the other wave models with the flagship's physics in the k1
+          configuration, in their default quirk modes (``chip_smoke.py``
+          phase 8);
+  qg      ``QGModel`` with its passive scalar (``chip_smoke.qg_flagship``),
+          f32 on cuFFT.
 
 For each it times ``--steps`` steps with the host clock (closed by a
 synchronise, on a mesh also by a barrier), then profiles ``--steps`` more
@@ -43,12 +49,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import (K1_TRANSFORM, NRANKS, SHARD_OPTS,  # noqa: E402
-                        flagship)
+                        flagship, qg_flagship)
 
+K1_CONFIG = dict(backend="mxu", precision="split", transform_opts=K1_TRANSFORM)
+# configuration -> (model module of niwqg_tpu_torch, its keywords)
 CONFIGS = {
-    "k1": dict(backend="mxu", precision="split", transform_opts=K1_TRANSFORM),
-    "cufft": dict(backend="native"),
-    "sharded": dict(backend="native", fast=True, transform_opts=SHARD_OPTS),
+    "k1": ("CoupledModel", K1_CONFIG),
+    "cufft": ("CoupledModel", dict(backend="native")),
+    "sharded": ("CoupledModel", dict(backend="native", fast=True,
+                                     transform_opts=SHARD_OPTS)),
+    "uncoupled": ("UnCoupledModel", K1_CONFIG),
+    "ql": ("QLModel", K1_CONFIG),
+    "ybj": ("YBJModel", K1_CONFIG),
+    "qg": ("QGModel", dict(backend="native")),
 }
 
 
@@ -73,13 +86,15 @@ def profile(name, nx, steps, out_dir, mesh=None):
     import torch
     from torch.profiler import ProfilerActivity
 
-    from niwqg_tpu_torch import CoupledModel
+    import niwqg_tpu_torch as pkg
     from niwqg_tpu_torch import InitialConditions as ic
 
-    kw = dict(CONFIGS[name])
+    model, kw = CONFIGS[name]
+    kw = dict(kw)
     if mesh is not None:
         kw["mesh"] = mesh
-    m = flagship(CoupledModel, ic, nx=nx, dtype=np.float32, **kw)
+    build = qg_flagship if model == "QGModel" else flagship
+    m = build(getattr(pkg, model), ic, nx=nx, dtype=np.float32, **kw)
     m.run_steps(2)
 
     def sync():
