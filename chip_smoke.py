@@ -51,7 +51,11 @@ Phases (any failure exits non-zero):
      device and on the host as in phase 6. Where every rank has its own
      card it also times NCCL's ``all_to_all_single`` on the forward's and
      the inverse's blocks (``library_ms``), and K2's ``ms`` in the result
-     line is this layout's device time; otherwise it is phase 6's;
+     line is this layout's device time; otherwise it is phase 6's. On the
+     K2 route every rank then checkpoints the sharded state (the in-memory
+     tree, a collective), takes 2 steps, loads the checkpoint and takes the
+     same 2 steps again: bitwise equal, with K2's launches per step
+     unchanged (they count in ``launches``);
   8. the model family at 2048² with the flagship's physics, each model in
      its default ``faithful_quirks`` mode: ``UnCoupledModel``, ``QLModel``
      and ``YBJModel`` in the K1 configuration of phase 4, their phi the
@@ -63,8 +67,20 @@ Phases (any failure exits non-zero):
      in f64 on cuFFT (q, phi and Ke, with Pw and Kw shown beside them;
      YBJ: phi, and q bitwise what ``set_q`` gave); then ``QGModel`` with its passive
      scalar (beta=1e-11, a plane-wave tracer) in f32 on cuFFT, timed the
-     same way, against its f64 cuFFT run (q, c, Ke and cvar). K1's
-     ``launches`` in the result line counts phases 4 and 8.
+     same way, against its f64 cuFFT run (q, c, Ke and cvar);
+  9. output and checkpoints: a fresh flagship in the K1 configuration of
+     phase 4 with a diagnostics sample every step, ``run_with_snapshots``
+     over 6 steps with t, q and phi written as ``.npy`` files every 2 by
+     the step loop through an ``io.Saver`` with ``npy-async`` snapshots
+     (the HDF5 setup and diagnostics files, which need h5py, are left to
+     the CPU tests) and a checkpoint at step 2 (the in-memory tree); the
+     last snapshot bitwise the live fields; the checkpoint
+     loaded and ``run()`` to tmax bitwise the first pass (q, phi, Ke, Pw,
+     Kw, every diagnostic series); K1's launches per step (40, and 8 a
+     diagnostics sample), none from a snapshot, all on the tensor-core
+     route; steps/s beside phase 4's, ms per snapshot, the checkpoint's
+     size and its save and load ms. K1's ``launches`` in the result line
+     counts phases 4, 8 and 9.
 
 The line before the last holds the card's name and power limit; the one
 before it the kernels' JSON record; the last line is
@@ -89,9 +105,14 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NX = 2048
 U0 = 0.05
+DT = 157.0
 WARM_STEPS = 2
 TIMED_STEPS = 3
 K1_PER_STEP = 40  # 20 complex 2-D transforms x 2 passes (see PERF.md)
+# a diagnostics sample of the coupled model: stage_sources' 2 fields and
+# the registry's 2, both passes
+K1_PER_DIAG = 8
+IO_STEPS, IO_SNAP_EVERY = 6, 2  # phase 9: tmax and the snapshot cadence
 # K1 launches per step of the other wave models in their default quirk
 # modes; tests/test_torch_models.py holds this table to JAX's trace
 K1_PER_STEP_FAMILY = {"UnCoupledModel": 72, "QLModel": 48, "YBJModel": 38}
@@ -197,11 +218,10 @@ def flagship(CoupledModel, ic, nx=NX, packet=False, **kw):
     U0=0.05, dt=157, L=2*pi*200 km, filter on, nu4=nu4w=7.5e9. With
     ``packet`` the constant phi gains a wave packet, so that the wave
     gradients (which a stale-gradient model carries from ``set_phi``) are
-    not zero. ``kw`` may override the hyperviscosities."""
-    kw = {"nu4": 7.5e9, "nu4w": 7.5e9, **kw}
-    m = CoupledModel.Model(L=2 * np.pi * 200e3, nx=nx, dt=157.0,
-                           tmax=157.0 * 100, m=1.0 / 325, N=0.005, f=1e-4,
-                           use_filter=True, **kw)
+    not zero. ``kw`` may override the hyperviscosities and ``tmax``."""
+    kw = {"nu4": 7.5e9, "nu4w": 7.5e9, "tmax": DT * 100, **kw}
+    m = CoupledModel.Model(L=2 * np.pi * 200e3, nx=nx, dt=DT, m=1.0 / 325,
+                           N=0.005, f=1e-4, use_filter=True, **kw)
     k0 = 10 * (2 * np.pi / m.L)
     q = ic.LambDipole(m, U=U0, R=2 * np.pi / k0)
     m.set_q(q)
@@ -337,6 +357,149 @@ def family_phase(torch, mm):
     del m64
     torch.cuda.empty_cache()
     return launches
+
+
+def io_phase(torch, mm, main_sps):
+    """Phase 9: output, ``run_with_snapshots`` and a checkpoint on the
+    flagship in the K1 configuration (a model of its own), 6 steps with a
+    diagnostics sample each and a snapshot every 2; a checkpoint at step 2,
+    loaded after the run, and a second pass to tmax that must give the
+    same bits. ``main_sps`` is phase 4's steps/s (None when it did not
+    run). Returns K1's launches in the phase.
+
+    The snapshots go through the model's own cadence into an
+    ``io.Saver`` with ``npy-async`` snapshots, and the checkpoint is the
+    in-memory tree, so that the phase needs no h5py (the HDF5 files,
+    ``setup.h5``, ``diagnostics.h5`` and checkpoint files, are held to the
+    JAX package's by the CPU tests)."""
+    from niwqg_tpu_torch import CoupledModel
+    from niwqg_tpu_torch import InitialConditions as ic
+    from niwqg_tpu_torch import io as nio
+
+    count = mm.csplit_matmul
+    tmp = tempfile.mkdtemp(prefix="niwqg_io_")
+    snapdir = os.path.join(tmp, "snapshots")
+    try:
+        zero_k1_counts(mm)
+        t0 = time.perf_counter()
+        m = flagship(CoupledModel, ic, backend="mxu", dtype=np.float32,
+                     precision="split", transform_opts=K1_TRANSFORM,
+                     tdiags=1, tsave_snapshots=IO_SNAP_EVERY,
+                     tmax=IO_STEPS * DT)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        n_set = count.launches
+        # the Saver that save_to_disk=True builds, without its HDF5 setup
+        # and diagnostics files; the step loop calls it every
+        # tsave_snapshots steps, and the time of each call and of the
+        # copies to the host inside it is kept
+        saver = m.saver = nio.Saver(tmp, True, snapshot_format="npy-async")
+        snap_ms, fetch_ms, snap_launches = [], [], 0
+        save_snapshot, get_field = saver.save_snapshot, m.get_field
+
+        def timed_get_field(name):
+            t0 = time.perf_counter()
+            value = get_field(name)
+            fetch_ms.append(1e3 * (time.perf_counter() - t0))
+            return value
+
+        def timed_snapshot(model, fields):
+            nonlocal snap_launches
+            torch.cuda.synchronize()
+            n0, t0 = count.launches, time.perf_counter()
+            save_snapshot(model, fields)
+            torch.cuda.synchronize()
+            snap_ms.append(1e3 * (time.perf_counter() - t0))
+            snap_launches += count.launches - n0
+
+        saver.save_snapshot, m.get_field = timed_snapshot, timed_get_field
+
+        ckpt, save_s = None, 0.0
+        t_start = time.perf_counter()
+        for _ in m.run_with_snapshots(tsnapint=IO_SNAP_EVERY * DT):
+            if m.tc == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ckpt = nio.checkpoint_tree(m)
+                save_s = time.perf_counter() - t0
+        torch.cuda.synchronize()  # run_with_snapshots drained the writer
+        wall = time.perf_counter() - t_start - save_s
+        n_pass1 = count.launches - n_set
+        fields = ("q", "phi", "Ke", "Pw", "Kw")
+        end = {k: getattr(m, k) for k in fields}
+        series = {k: v["value"].copy() for k, v in m.diagnostics.items()}
+        size = sum(a.nbytes for a in (list(ckpt["state"].values())
+                                      + list(ckpt["state"]["d"].values())
+                                      + list(ckpt["diagnostics"].values()))
+                   if hasattr(a, "nbytes"))
+        stems = sorted(f.split(".")[0] for f in os.listdir(snapdir)
+                       if f.endswith(".q.npy"))
+        check(len(stems) == IO_STEPS // IO_SNAP_EVERY == len(snap_ms),
+              f"phase 9: {len(stems)} q snapshot files for {len(snap_ms)} "
+              "snapshots")
+        stem = "{:015.0f}".format(m.t)
+        for name in ("q", "phi"):
+            snap = np.load(os.path.join(snapdir, f"{stem}.{name}.npy"))
+            check(snap.dtype == end[name].dtype
+                  and np.array_equal(snap, end[name]),
+                  f"phase 9: the last {name} snapshot differs from the live "
+                  "field")
+
+        m.saver = nio.Saver(tmp, False)  # the resumed pass writes nothing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nio.restore_tree(m, ckpt)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(m.tc == 2, f"phase 9: the checkpoint resumed at step {m.tc}")
+        n0 = count.launches
+        m.run()
+        torch.cuda.synchronize()
+        n_pass2 = count.launches - n0
+        for k, v in end.items():
+            check(np.array_equal(getattr(m, k), v),
+                  f"phase 9: {k} after the resume differs from the first "
+                  "pass")
+        for k, v in m.diagnostics.items():
+            check(np.array_equal(v["value"], series[k]),
+                  f"phase 9: the {k} series after the resume differs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    per_step = K1_PER_STEP + K1_PER_DIAG
+    log(f"phase 9 (IO, K1 configuration, tdiags=1, a snapshot every "
+        f"{IO_SNAP_EVERY} steps): built in {t_build:.1f} s; "
+        f"run_with_snapshots, {IO_STEPS} steps in {wall:.3f} s = "
+        f"{IO_STEPS / wall:.3f} steps/s with output and a diagnostics sample "
+        f"a step (phase 4, run_steps: "
+        + (f"{main_sps:.3f}" if main_sps else "not run") + " steps/s)")
+    n_snap = len(snap_ms)
+    log(f"  snapshots (t, q and phi through io.Saver, npy-async; h5py "
+        f"{'installed' if has_h5py() else 'not installed'} here): {n_snap} "
+        f"of {np.mean(snap_ms):.1f} ms each "
+        f"({', '.join(f'{x:.1f}' for x in snap_ms)}), host clock with a "
+        f"synchronise; of which the copies to the host (get_field) "
+        f"{sum(fetch_ms) / n_snap:.1f} ms and the writer's submits (np.save "
+        f"to memory, the C++ copy) "
+        f"{(sum(snap_ms) - sum(fetch_ms)) / n_snap:.1f} ms a snapshot; K1 "
+        f"launches in them: {snap_launches}")
+    log(f"  checkpoint (in memory, io.checkpoint_tree) {size / 1e6:.1f} MB: "
+        f"save {1e3 * save_s:.1f} ms, load (io.restore_tree) "
+        f"{1e3 * load_s:.1f} ms; the resumed run to tmax equals the first "
+        "pass bitwise (q, phi, Ke, Pw, Kw and every diagnostic series)")
+    log(f"  K1 launches: set_q/set_phi {n_set}, first pass {n_pass1} "
+        f"({n_pass1 / IO_STEPS:.1f}/step), resumed pass {n_pass2}; "
+        f"{count.launches_tc} of {count.launches} on the tensor-core route; "
+        f"card {smi_name_power()}")
+    check(snap_launches == 0, "phase 9: a snapshot launched K1")
+    check(count.cpu_calls == 0, "phase 9: K1 ran its plain version")
+    check(n_pass1 == per_step * IO_STEPS
+          and n_pass2 == per_step * (IO_STEPS - 2),
+          f"phase 9: expected {per_step} K1 launches per step "
+          f"({K1_PER_STEP} a step, {K1_PER_DIAG} a diagnostics sample)")
+    check(count.launches_tc == count.launches and count.launches_f32 == 0,
+          "phase 9: K1 launches off the tensor-core route")
+    return count.launches
 
 
 def k1_planes(torch, mm, M, K, N, seed, dft):
@@ -622,10 +785,15 @@ def _sharded_rank(rank, port, route, outdir):
     wall = time.perf_counter() - t0
     n_timed = (fwd.launches - n_set[0] - n_warm[0],
                inv.launches - n_set[1] - n_warm[1])
-    paths = (fwd.launches_aligned + inv.launches_aligned,
-             fwd.launches_ragged + inv.launches_ragged)
     q_end, ke_end = m.q, m.Ke
     finite = bool(np.isfinite(q_end).all() and math.isfinite(ke_end))
+    n_ckpt, ckpt_equal, ckpt_ms = (0, 0), True, (np.nan, np.nan)
+    if route == "k2":
+        n_ckpt, ckpt_equal, ckpt_ms = sharded_checkpoint(torch, m)
+        n_ckpt = (n_ckpt[0] - n_timed[0] - n_warm[0] - n_set[0],
+                  n_ckpt[1] - n_timed[1] - n_warm[1] - n_set[1])
+    paths = (fwd.launches_aligned + inv.launches_aligned,
+             fwd.launches_ragged + inv.launches_ragged)
 
     # the transposes alone at the path's shape, in this process layout
     shape = (K2_LEAD, K2_R, NRANKS * K2_W)
@@ -679,7 +847,8 @@ def _sharded_rank(rank, port, route, outdir):
     if rank == 0:
         np.savez(os.path.join(outdir, f"{route}.npz"), q=q, phi=phi, ke=ke,
                  wall=wall, t_build=t_build, n_set=n_set, n_warm=n_warm,
-                 n_timed=n_timed, paths=paths, finite=finite,
+                 n_timed=n_timed, n_ckpt=n_ckpt, ckpt_equal=ckpt_equal,
+                 ckpt_ms=ckpt_ms, paths=paths, finite=finite,
                  backend=backend, cpu_calls=fwd.cpu_calls + inv.cpu_calls,
                  k2_ms=k2_ms, k2_inv_ms=k2_inv_ms, lib_ms=lib_ms,
                  lib_inv_ms=lib_inv_ms, k2_dev=k2_dev, k2_inv_dev=k2_inv_dev,
@@ -688,6 +857,43 @@ def _sharded_rank(rank, port, route, outdir):
     if tr._group is not None:
         tr._group.close()
     multihost.shutdown()
+
+
+def has_h5py() -> bool:
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def sharded_checkpoint(torch, m):
+    """Phase 7's checkpoint round trip on every rank: the in-memory tree
+    of the sharded state (a collective: every rank gathers the global
+    fields; no h5py needed), 2 steps, the tree loaded (each rank cuts its
+    shard), the same 2 steps again, bitwise against the first. Returns
+    K2's (forward, inverse) launch totals after it, whether every field
+    agreed, and the (save, load) ms."""
+    from niwqg_tpu_torch import io as nio
+    from niwqg_tpu_torch.parallel import a2a
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = nio.checkpoint_tree(m)
+    torch.cuda.synchronize()
+    t_save = time.perf_counter() - t0
+    fields = ("q", "phi", "Ke", "Pw", "Kw")
+    m.run_steps(2)
+    first = {k: getattr(m, k) for k in fields}  # collectives
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nio.restore_tree(m, tree)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    m.run_steps(2)
+    equal = all(np.array_equal(getattr(m, k), v) for k, v in first.items())
+    counts = (a2a.all_to_all_fwd.launches, a2a.all_to_all_inv.launches)
+    return counts, equal, (1e3 * t_save, 1e3 * t_load)
 
 
 def sharded_phase(torch, refs):
@@ -731,6 +937,17 @@ def sharded_phase(torch, refs):
                 if route == "k2" else (0, 0))
         check((nf, ni) == want, f"{route} route: expected {want} K2 launches "
               f"in {TIMED_STEPS} steps, counted {(nf, ni)}")
+        if route == "k2":
+            nc = tuple(int(x) for x in r["n_ckpt"])
+            save_ms, load_ms = (float(x) for x in r["ckpt_ms"])
+            log(f"  checkpoint of the sharded state (in memory, "
+                f"io.checkpoint_tree), 2 steps, load, the same 2 steps: bitwise equal {bool(r['ckpt_equal'])}; save "
+                f"{save_ms:.1f} ms, load {load_ms:.1f} ms (rank 0); K2 "
+                f"launches {nc} in the 4 steps")
+            check(bool(r["ckpt_equal"]), "the sharded run resumed from its "
+                  "checkpoint differs from the run it was taken from")
+            check(nc == (4 * K2_FWD_PER_STEP, 4 * K2_INV_PER_STEP),
+                  "the checkpoint round trip changed K2's launches per step")
         for name, (rq, rphi, rke) in refs.items():
             limit = SHARD_RTOL if name == "one-card f32 cuFFT" else CROSS_RTOL
             dq = np.abs(r["q"] - rq).max() / np.abs(rq).max()
@@ -747,7 +964,7 @@ def sharded_phase(torch, refs):
         f"(relative; limit {ROUTE_RTOL}: the transposes are copies, the "
         "y-FFTs run in other batch shapes)")
     check(max(dq, dphi) <= ROUTE_RTOL, "the two routes give different states")
-    n_all = sum(int(x) for key in ("n_set", "n_warm", "n_timed")
+    n_all = sum(int(x) for key in ("n_set", "n_warm", "n_timed", "n_ckpt")
                 for x in a[key])
     aligned, ragged = (int(x) for x in a["paths"])
     log(f"K2 paths on rank 0's main path: {aligned} launches aligned, "
@@ -774,8 +991,9 @@ def sharded_phase(torch, refs):
             f"{lib[0]:.4f} ms, inverse's blocks {lib[1]:.4f} ms a call on "
             f"the device (CUDA events); host clock over 20 calls "
             f"{float(b['lib_ms']):.4f} and {float(b['lib_inv_ms']):.4f} ms")
-    launches = tuple(int(x) + int(y) + int(z) for x, y, z in
-                     zip(a["n_set"], a["n_warm"], a["n_timed"]))
+    launches = tuple(sum(int(a[key][i]) for key in
+                         ("n_set", "n_warm", "n_timed", "n_ckpt"))
+                     for i in range(2))
     k2_dev = (float(a["k2_dev"][0]), float(a["k2_inv_dev"][0]))
     return launches, lib, k2_dev
 
@@ -786,13 +1004,13 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="3,4,5,6,7,8",
+    ap.add_argument("--phases", default="3,4,5,6,7,8,9",
                     help="phases to run beyond the card report and the "
                          "build (default: all; a partial run is for "
                          "debugging and prints no result lines)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",") if x}
-    full = phases >= {3, 4, 5, 6, 7, 8}
+    full = phases >= {3, 4, 5, 6, 7, 8, 9}
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -841,6 +1059,8 @@ def main(argv=None) -> int:
         sharded_phase(torch, refs)
     if 8 in phases and not full:
         family_phase(torch, mm)
+    if 9 in phases and not full:
+        io_phase(torch, mm, None)
     if not full:
         log("partial run: no result lines")
         return 0
@@ -870,6 +1090,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     ke_end = m.Ke
     wall = time.perf_counter() - t0
+    main_sps = TIMED_STEPS / wall
     launches = mm.csplit_matmul.launches
     n_timed = launches - n_set - n_warm
     log(f"main path: {TIMED_STEPS} steps in {wall:.3f} s = "
@@ -952,6 +1173,9 @@ def main(argv=None) -> int:
 
     # -- 8. the model family ------------------------------------------------------
     rec["launches"] += family_phase(torch, mm)
+
+    # -- 9. output, run_with_snapshots and a checkpoint -----------------------
+    rec["launches"] += io_phase(torch, mm, main_sps)
 
     order = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")

@@ -2,8 +2,11 @@
 
 Stateful shells over the kernels with the reference's API surface:
 ``Model(**kwargs)``, ``set_q``/``set_phi``/``set_c``, ``run``,
-``run_steps`` and ``model.diagnostics[...]['value']``, for the five
-models: Coupled, UnCoupled, QL, YBJ and QG (with its passive scalar).
+``run_with_snapshots``, ``run_steps``, ``model.diagnostics[...]['value']``,
+output to disk (``save_to_disk``, ``path``, ``overwrite``,
+``snapshot_format``: ``io.Saver``) and checkpoints
+(``save_checkpoint``/``load_checkpoint``), for the five models: Coupled,
+UnCoupled, QL, YBJ and QG (with its passive scalar).
 Constructor keywords and defaults are the JAX package's, ``faithful_quirks``
 included; the extra ``device`` picks where the model runs: the
 first CUDA card by default (the constructor raises without one), or
@@ -16,11 +19,11 @@ four models raise on it): the state holds this rank's blocks,
 ``set_q``/``set_phi`` take the global array on every rank and keep the
 local block, and ``m.q``, ``m.phi`` and the diagnostics return global
 values on every rank (the field properties gather, so every rank calls
-them together).
+them together, as they do ``run``, snapshots and checkpoints; only rank 0
+writes files).
 
-Not ported yet (ROADMAP.md, queue 1): output to disk (``save_to_disk``),
-``run_with_snapshots`` and checkpoints (item 6), and the UnCoupled, QL,
-YBJ and QG models on a mesh (item 11).
+Not ported yet (ROADMAP.md, queue 1): the UnCoupled, QL, YBJ and QG
+models on a mesh (item 11).
 """
 
 from __future__ import annotations
@@ -33,14 +36,13 @@ import torch
 from . import diagnostics as diag_mod
 from .device import default_dtype, resolve_device
 from .diagnostics import SeriesAccumulator
+from .io import Saver, load_checkpoint, require_h5py, save_checkpoint
 from .models.coupled import CoupledPhysics
 from .models.kernel import KernelParams, WaveKernel
 from .models.qg import QGKernel, QGParams
 from .models.ql import QLPhysics
 from .models.uncoupled import UnCoupledPhysics
 from .models.ybj import YBJKernel
-
-_NO_IO = "save_to_disk is not ported yet (ROADMAP.md, queue 1, item 6)"
 
 
 def _make_sharded_transform(nx, dtype, mesh, backend, opts=None):
@@ -92,7 +94,8 @@ class _ModelBase:
 
     model = "model"
 
-    def _init_services(self, registry):
+    def _init_services(self, registry, path, save_to_disk, overwrite,
+                       snapshot_format="h5"):
         self.logger = _make_logger(type(self).__module__)
         mesh = getattr(self, "_mesh", None)
         if mesh is not None and mesh.rank != 0:
@@ -107,6 +110,13 @@ class _ModelBase:
         )
         self.registry = registry
         self._diag_acc = SeriesAccumulator(registry)
+        if save_to_disk:
+            # setup.h5 and diagnostics.h5 are HDF5 in either snapshot
+            # format: raise before any directory is made
+            require_h5py()
+        self.saver = Saver(path, save_to_disk, overwrite,
+                           snapshot_format=snapshot_format, mesh=mesh)
+        self.saver.save_setup(self)
 
     def _count_steps(self, tmax: float) -> int:
         """Steps the reference's ``while t < tmax`` loop takes from the
@@ -198,6 +208,55 @@ class _ModelBase:
             f"{type(self).__name__!r} object has no attribute {name!r}"
         )
 
+    # -- host helpers (numpy, for reference-style scripts) -------------------
+    def fft(self, x):
+        """Host transform in the model's spectral layout."""
+        g = self.kernel.grid
+        if g.spectrum == "half":
+            xh = np.fft.rfft2(x)
+            if g.pad:
+                xh = np.pad(xh, [(0, 0)] * (xh.ndim - 1) + [(0, g.pad)])
+            return xh
+        return np.fft.fft2(x)
+
+    def ifft(self, xh):
+        g = self.kernel.grid
+        if g.spectrum == "half":
+            return np.fft.irfft2(xh[..., : self.nx // 2 + 1],
+                                 s=(self.ny, self.nx))
+        return np.fft.ifft2(xh)
+
+    def spec_var(self, ph):
+        """The variance of the field whose transform is ``ph`` (a host
+        array in the model's spectral layout), mean mode excluded."""
+        g = self.kernel.grid
+        var_dens = np.abs(np.asarray(ph)) ** 2 / float(g.M) ** 2
+        if g.spectrum == "half":
+            var_dens = 2.0 * var_dens
+            var_dens[:, 0] *= 0.5
+            var_dens[:, g.nx // 2] *= 0.5  # Nyquist (the layout may be padded)
+        var_dens[0, 0] = 0.0
+        return var_dens.sum()
+
+    def isotropic_spectrum(self, field):
+        """pyspec-style power spectrum of a field: the 2-D density and its
+        ring integral (``utils.spectrum.spectrum_2d``). ``field`` is a
+        physical-space array or the name of a model attribute (``'q'``,
+        ``'phi'``, ``'p'``, ...)."""
+        from .utils.spectrum import spectrum_2d
+
+        if isinstance(field, str):
+            field = getattr(self, field)
+        dx = self.kernel.grid.dx
+        return spectrum_2d(np.asarray(field), dx, dx)
+
+    def get_field(self, name: str):
+        """A snapshot field: ``'t'`` or a model attribute (gathered over a
+        mesh, so every rank calls it)."""
+        if name == "t":
+            return self.t
+        return getattr(self, name)
+
     @property
     def diagnostics(self):
         return self._diag_acc.as_reference_dict()
@@ -236,10 +295,15 @@ class _ModelBase:
         physics = getattr(self.kernel, "physics", None)
         return bool(getattr(physics, "stale_phi_gradients", False))
 
+    def _snapshot_fields(self):
+        raise NotImplementedError
+
     def _step_forward(self):
-        """One step + the diagnostics and status cadence: diagnostics are
-        sampled when the *pre-step* counter hits ``tdiags`` and record the
-        pre-step time; the status line prints every ``twrite`` steps. In
+        """One step + the diagnostics, status and snapshot cadence:
+        diagnostics are sampled when the *pre-step* counter hits ``tdiags``
+        and record the pre-step time; the status line prints every
+        ``twrite`` steps and a snapshot is saved every ``tsave_snapshots``
+        steps (with ``save_to_disk``). In
         the stale-gradient mode each of the two refreshes the wave
         gradients after it has read them, as the reference's
         ``_calc_pe_niw`` does (``run_steps`` refreshes nothing)."""
@@ -251,15 +315,47 @@ class _ModelBase:
             self._diag_acc.append(self._diag_fn(self.state, t_prev))
             if self._stale_grads:
                 self.state = self.kernel.refresh_phi_gradients(self.state)
-        if (tc_before + 1) % p.twrite == 0:
+        tc_now = tc_before + 1
+        if tc_now % p.twrite == 0:
             self._print_status()
             if self._stale_grads:
                 self.state = self.kernel.refresh_phi_gradients(self.state)
+        if self.saver.save_to_disk and tc_now % p.tsave_snapshots == 0:
+            self.saver.save_snapshot(self, self._snapshot_fields())
 
     def run(self):
-        """Run to ``tmax`` with the reference's per-step cadence."""
+        """Run to ``tmax`` with the reference's per-step cadence; with
+        ``save_to_disk`` a snapshot before the first step and
+        ``diagnostics.h5`` at the end."""
+        if self.saver.save_to_disk:
+            self.saver.save_snapshot(self, self._snapshot_fields())
         for _ in range(self._count_steps(self.params.tmax)):
             self._step_forward()
+        if self.saver.save_to_disk:
+            self.saver.save_diagnostics(self.diagnostics)
+
+    def run_with_snapshots(self, tsnapstart=0.0, tsnapint=432000.0):
+        """Generator run loop: steps to ``tmax`` as :meth:`run` does (no
+        first snapshot, no ``diagnostics.h5``) and yields the time after
+        every step whose counter is a multiple of ``ceil(tsnapint / dt)``
+        once ``t >= tsnapstart``, so that the caller can inspect the live
+        model. Queued snapshot writes are drained at the end (on a mesh a
+        collective: a failed write raises on every rank); when an
+        exception is already propagating their errors are logged, not
+        raised over it."""
+        tsnapints = int(np.ceil(tsnapint / self.params.dt))
+        try:
+            for _ in range(self._count_steps(self.params.tmax)):
+                self._step_forward()
+                if self.t >= tsnapstart and self.tc % tsnapints == 0:
+                    yield self.t
+        except GeneratorExit:  # the caller stopped early: a normal end
+            self.saver.drain()
+            raise
+        except BaseException:
+            self.saver.drain(raise_errors=False)
+            raise
+        self.saver.drain()
 
     def run_steps(self, n: int):
         """``n`` steps with no diagnostics or status output."""
@@ -275,6 +371,16 @@ class _ModelBase:
 
     def _print_status(self):
         raise NotImplementedError
+
+    # -- checkpoints (see io.py; collective on a mesh) ------------------------
+    def save_checkpoint(self, path: str):
+        """Write the full state and the diagnostic series to ``path``."""
+        save_checkpoint(path, self)
+
+    def load_checkpoint(self, path: str):
+        """Restore a checkpoint written by this package or the JAX one."""
+        load_checkpoint(path, self)
+        return self
 
 
 class _WaveModel(_ModelBase):
@@ -293,9 +399,7 @@ class _WaveModel(_ModelBase):
                  precision="auto", mesh=None, fast=None,
                  snapshot_format="h5", compute_budgets=True,
                  spectral_budgets=True, device=None, **kernel_kwargs):
-        del ny, overwrite, path, snapshot_format  # ny is ignored as in the reference
-        if save_to_disk:
-            raise NotImplementedError(_NO_IO)
+        del ny  # ignored, as in the reference
         if mesh is not None and not self._runs_on_mesh:
             raise NotImplementedError(_no_mesh(self))
         self.device = resolve_device(device)
@@ -333,7 +437,8 @@ class _WaveModel(_ModelBase):
         self.kernel = self._make_kernel(dtype, backend, precision,
                                         **kernel_kwargs)
         self.state = self.kernel.zero_state()  # this rank's blocks
-        self._init_services(self._registry_factory())
+        self._init_services(self._registry_factory(), path, save_to_disk,
+                            overwrite, snapshot_format=snapshot_format)
 
     def _make_kernel(self, dtype, backend, precision, **kw):
         cls = WaveKernel
@@ -419,6 +524,9 @@ class _WaveModel(_ModelBase):
     @property
     def Kw(self):
         return float(self.state.Kw.item())
+
+    def _snapshot_fields(self):
+        return ["t", "q", "phi"]
 
     def set_q(self, q):
         # a copy: the state holds the value at call time
@@ -561,9 +669,7 @@ class QGModel(_ModelBase):
                  path="output/", dtype=None, backend="auto",
                  precision="auto", mesh=None, transform_opts=None,
                  spectral_budgets=True, fold_filter=False, device=None):
-        del ny, tswrite, overwrite, path
-        if save_to_disk:
-            raise NotImplementedError(_NO_IO)
+        del ny, tswrite
         if mesh is not None:
             raise NotImplementedError(_no_mesh(self))
         self.device = resolve_device(device)
@@ -582,7 +688,8 @@ class QGModel(_ModelBase):
                                transform_opts=transform_opts,
                                fold_filter=fold_filter, device=self.device)
         self.state = self.kernel.zero_state()
-        self._init_services(diag_mod.qg_registry())
+        self._init_services(diag_mod.qg_registry(), path, save_to_disk,
+                            overwrite)
 
     # -- state access (host numpy copies) ------------------------------------
     @property
@@ -616,6 +723,10 @@ class QGModel(_ModelBase):
     @property
     def cvar(self):
         return float(self.state.cvar.item())
+
+    def _snapshot_fields(self):
+        # the reference's _step_forward always asks for ['t', 'q', 'c']
+        return ["t", "q", "c"] if self.params.passive_scalar else ["t", "q"]
 
     def set_q(self, q):
         # a copy: the state holds the value at call time

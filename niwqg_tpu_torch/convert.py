@@ -35,8 +35,12 @@ from .parallel.mesh import gather_wave_state, map_state, shard_wave_state
 _Q_SIDE = ("qh", "ph", "qwh")
 
 
-def _get(obj, name):
-    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+def _get(obj, name, optional=False):
+    """``obj[name]`` of a dict (None for a missing ``optional`` key, as an
+    empty slot that a checkpoint file does not hold), else the attribute."""
+    if isinstance(obj, dict):
+        return obj.get(name) if optional else obj[name]
+    return getattr(obj, name)
 
 
 def _host_complex(x):
@@ -83,7 +87,7 @@ def state_from_numpy(kernel, s):
     d = _get(s, "d")
     fields = {}
     for name in Derived._fields:
-        v = _get(d, name)
+        v = _get(d, name, optional=name == "p")
         if name == "p":
             fields[name] = None if v is None or kernel._drop_p else real(v)
         elif name in ("ph", "qwh", "phi", "phix", "phiy"):
@@ -111,9 +115,10 @@ def state_to_numpy(s, mesh=None) -> dict:
     """The port's state as numpy: ``{"t", "tc", "qh", "phih", "Ke", "Pw",
     "Kw", "d": {Derived field: array or None}}``, with ``mesh=`` the
     global state gathered from every rank's shards; a ``QGState`` gives
-    ``{field: array}`` with ``tc`` an int."""
+    ``{field: array}`` with ``tc`` an int. The arrays are copies, also of
+    a state on the host: later steps cannot change them."""
     def host(x):
-        return None if x is None else x.detach().cpu().numpy()
+        return None if x is None else x.detach().to("cpu", copy=True).numpy()
 
     if isinstance(s, QGState):
         return {k: (int(v) if k == "tc" else host(v))

@@ -11,6 +11,7 @@ CoupledModel), ``misc`` (bootstrap, layouts, conversion).
 """
 
 import os
+import shutil
 import sys
 import warnings
 
@@ -123,6 +124,95 @@ def suite_misc(mesh):
         res[f"convert_dq_{fast}"] = float(np.abs(a.q - b.q).max())
         res[f"convert_dke_{fast}"] = abs(a.Ke - b.Ke)
         res[f"convert_tc_{fast}"] = b.tc
+    res.update(checkpoints(mesh, os.path.dirname(out)))
+    return res
+
+
+def checkpoints(mesh, d):
+    """Checkpoints of the sharded state: a resume bitwise against the
+    uninterrupted mesh run, files moving between the one-rank layout
+    (``q_half=False``) and the mesh, and the Saver's files on a mesh
+    (rank 0 writes; every path is given per rank, so that a write by
+    another rank would show)."""
+    from niwqg_tpu_torch import CoupledModel
+    from niwqg_tpu_torch import InitialConditions as ic
+
+    res = {}
+    fields = ("q", "phi", "Ke", "Pw", "Kw")
+    for fast in (False, True):
+        # 4 steps, checkpoint (a collective), 4 more; a fresh mesh model
+        # loads the file and takes the same 4
+        a = coupled(CoupledModel, ic, nsteps=4, mesh=mesh, device="cpu",
+                    fast=fast)
+        ck = os.path.join(d, f"mesh_{fast}.h5")
+        a.save_checkpoint(ck)
+        a.save_checkpoint(os.path.join(d, f"who_{fast}_{rank}.h5"))
+        a.run_steps(4)
+        b = coupled(CoupledModel, ic, nsteps=0, mesh=mesh, device="cpu",
+                    fast=fast)
+        b.load_checkpoint(ck)
+        res[f"ckpt_tc_{fast}"] = b.tc
+        b.run_steps(4)
+        for k in fields:  # collectives: every rank
+            res[f"ckpt_{k}_equal_{fast}"] = bool(np.array_equal(
+                getattr(a, k), getattr(b, k)))
+        res[f"ckpt_series_equal_{fast}"] = all(
+            np.array_equal(a.diagnostics[k]["value"],
+                           b.diagnostics[k]["value"]) for k in a.diagnostics)
+        res[f"ckpt_series_len_{fast}"] = len(b.diagnostics["ke_qg"]["value"])
+        res[f"ckpt_local_qh_shape_{fast}"] = tuple(b.state.qh.shape)
+
+    # one rank -> mesh: every rank runs the one-rank model, rank 0 writes
+    one = coupled(CoupledModel, ic, nsteps=4, device="cpu", fast=True,
+                  q_half=False)
+    f1 = os.path.join(d, "one_rank.h5")
+    if rank == 0:
+        one.save_checkpoint(f1)
+    mesh.barrier()
+    c = coupled(CoupledModel, ic, nsteps=0, mesh=mesh, device="cpu",
+                fast=True)
+    c.load_checkpoint(f1)
+    one.run_steps(4)
+    c.run_steps(4)
+    res["one_to_mesh_dq"] = float(np.abs(c.q - one.q).max()
+                                  / np.abs(one.q).max())
+    res["one_to_mesh_dphi"] = float(np.abs(c.phi - one.phi).max()
+                                    / np.abs(one.phi).max())
+    # mesh -> one rank: the mesh file after 4 steps into a one-rank model
+    # on every rank, beside the mesh run (a, fast) after 8
+    p = coupled(CoupledModel, ic, nsteps=0, device="cpu", fast=True,
+                q_half=False)
+    p.load_checkpoint(os.path.join(d, "mesh_True.h5"))
+    p.run_steps(4)
+    aq = a.q  # a collective
+    res["mesh_to_one_dq"] = float(np.abs(p.q - aq).max() / np.abs(aq).max())
+    res["mesh_to_one_tc"] = p.tc
+
+    # run() with save_to_disk on the mesh: only rank 0's path is written
+    coupled(CoupledModel, ic, nsteps=4, mesh=mesh, device="cpu", fast=True,
+            save_to_disk=True, tsave_snapshots=2,
+            path=os.path.join(d, f"mesh_out_{rank}"))
+
+    # npy-async on the mesh with rank 0's snapshots directory gone: the
+    # failed writes raise on every rank at the end of run_with_snapshots
+    # (a rank that returned would wait at its next collective)
+    if shutil.which("g++"):
+        m = CoupledModel.Model(nx=NX, use_filter=False, tmax=2 * 10000.0,
+                               mesh=mesh, device="cpu", fast=True,
+                               save_to_disk=True, tsave_snapshots=1,
+                               snapshot_format="npy-async",
+                               path=os.path.join(d, f"mesh_async_{rank}"))
+        if rank == 0:
+            shutil.rmtree(os.path.join(d, "mesh_async_0", "snapshots"))
+        raised = 0.0
+        try:
+            for _ in m.run_with_snapshots(tsnapint=10000.0):
+                pass
+        except (IOError, RuntimeError):
+            raised = 1.0
+        res["async_fail_raised_on"] = float(
+            mesh.all_reduce(torch.tensor([raised])).item())
+        res["async_fail_tc"] = m.tc
     return res
 
 
@@ -140,6 +230,7 @@ def main():
     res = {"pfft": suite_pfft, "model": suite_model,
            "misc": suite_misc}[suite](mesh)
     res["bare_warnings"] = len(bare_warned)
+    res["out_path"] = out
     if rank == 0:
         np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
     multihost.shutdown()

@@ -216,8 +216,6 @@ def test_kernel_needs_a_card_unless_cpu_is_asked(fast, monkeypatch):
                                   "QLModel", "YBJModel", "QGModel"])
 def test_unported_shell_options_raise(name):
     model = getattr(torch_api, name)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        model(nx=16, device="cpu", save_to_disk=True)
     if name != "CoupledModel":
         # the other four models are not ported to a mesh yet
         with pytest.raises(NotImplementedError, match="item 11"):

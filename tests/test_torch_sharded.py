@@ -4,6 +4,7 @@ f64) against the JAX package's sharded run on the 4-device virtual mesh
 run; then the kernel's refusals, the process bootstrap and the conversion
 of a sharded state."""
 
+import shutil
 import warnings
 
 import numpy as np
@@ -153,6 +154,79 @@ def test_convert_round_trip_sharded(misc, fast):
     assert int(misc[f"convert_tc_{fast}"]) == 5
     assert float(misc[f"convert_dq_{fast}"]) == 0.0
     assert float(misc[f"convert_dke_{fast}"]) == 0.0
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_sharded_checkpoint_resumes_bitwise(misc, fast):
+    """4 steps on the mesh, a checkpoint (a collective that rank 0
+    writes), a fresh mesh model loads it and takes 4 more steps: q, phi,
+    the budgets and the diagnostic series equal the uninterrupted mesh
+    run's bitwise (JAX's sharded bound is 1e-14), and the state is this
+    rank's column block again."""
+    assert int(misc[f"ckpt_tc_{fast}"]) == 4
+    for k in ("q", "phi", "Ke", "Pw", "Kw", "series"):
+        assert bool(misc[f"ckpt_{k}_equal_{fast}"]), k
+    assert int(misc[f"ckpt_series_len_{fast}"]) == 4
+    assert tuple(misc[f"ckpt_local_qh_shape_{fast}"]) == (NX, NX // NRANKS)
+
+
+def test_checkpoint_moves_between_one_rank_and_mesh(misc):
+    """A file of the one-rank port (``q_half=False``) resumes on the mesh,
+    and a mesh file on one rank, each within 1e-12 of the run it left
+    (the mesh and one rank sum in other orders)."""
+    assert float(misc["one_to_mesh_dq"]) <= 1e-12
+    assert float(misc["one_to_mesh_dphi"]) <= 1e-12
+    assert int(misc["mesh_to_one_tc"]) == 8
+    assert float(misc["mesh_to_one_dq"]) <= 1e-12
+
+
+def test_mesh_saver_writes_on_rank_0_only(misc, tmp_path):
+    """``run()`` with ``save_to_disk`` on the mesh (every rank given its
+    own path): rank 0's path holds the one-rank run's files, the same
+    datasets to 1e-12 (the diagnostic series to 1e-10, as ``_hold``), and
+    no other rank wrote a file; a checkpoint is written by rank 0 alone
+    too."""
+    import os
+
+    import h5py
+
+    d = os.path.dirname(str(misc["out_path"]))
+    assert sorted(f for f in os.listdir(d) if f.startswith("mesh_out_")) \
+        == ["mesh_out_0"]
+    assert sorted(f for f in os.listdir(d) if f.startswith("who_")) \
+        == ["who_False_0.h5", "who_True_0.h5"]
+    one = str(tmp_path / "one")
+    coupled(TCoupled, tic, nsteps=4, device="cpu", fast=True, q_half=False,
+            save_to_disk=True, tsave_snapshots=2, path=one)
+    mesh_out = os.path.join(d, "mesh_out_0")
+    rel = lambda p: sorted(os.path.relpath(os.path.join(r, f), p)
+                           for r, _, fs in os.walk(p) for f in fs)
+    assert rel(mesh_out) == rel(one)
+    assert "diagnostics.h5" in rel(one) and len(rel(one)) == 5
+    for f in rel(one):
+        rtol = 1e-10 if f == "diagnostics.h5" else 1e-12
+        with h5py.File(os.path.join(one, f)) as a, \
+                h5py.File(os.path.join(mesh_out, f)) as b:
+            names = []
+            a.visit(names.append)
+            for n in names:
+                if isinstance(a[n], h5py.Dataset):
+                    x, y = b[n][()], a[n][()]
+                    assert x.shape == y.shape and x.dtype == y.dtype, n
+                    assert np.abs(x - y).max(initial=0.0) \
+                        <= rtol * np.abs(y).max(initial=0.0), (f, n)
+
+
+@pytest.mark.skipif(shutil.which("g++") is None,
+                    reason="g++ (the native writer's compiler) is not "
+                           "installed")
+def test_mesh_snapshot_write_failure_raises_on_every_rank(misc):
+    """``snapshot_format="npy-async"`` on the mesh with rank 0's
+    snapshots directory removed: the drain at the end of
+    ``run_with_snapshots`` raises on all four ranks, not on rank 0 alone
+    (the others would then hang at their next collective)."""
+    assert float(misc["async_fail_raised_on"]) == 4.0
+    assert int(misc["async_fail_tc"]) == 2
 
 
 def test_pair_inverse_refusals():
