@@ -93,8 +93,25 @@ Phases (any failure exits non-zero):
      Kw, every diagnostic series); K1's launches per step (40, and 8 a
      diagnostics sample), none from a snapshot, all on the tensor-core
      route; steps/s beside phase 4's, ms per snapshot, the checkpoint's
-     size and its save and load ms. K1's ``launches`` in the result line
-     counts phases 4, 8 and 9.
+     size and its save and load ms;
+ 10. the run path, on six configurations at 2048² that phases 4, 5 and 8
+     build and step (the coupled model in the K1 configuration and on f32
+     cuFFT with ``q_half``, UnCoupled, QL and YBJ in the K1 configuration
+     with the packet, QG + scalar on f32 cuFFT), each held inside its
+     phase, before the model is freed (``--phases 10`` alone builds
+     them): ``run()`` with a diagnostics sample every step and a status
+     line every 5, and ``run_steps``, 10 steps each from one in-memory
+     checkpoint, as replayed CUDA graphs held to the eager loop
+     (``_step_forward``, ``kernel.step``) bit for bit (1e-6 where not);
+     K1's launches in every run against the eager loop's, and in one
+     replay of each graph against the pins; diagnostics fetches per chunk,
+     steps/s with graphs and eagerly, capture ms and peak memory.
+
+On one card every ``run_steps``, ``run`` and ``run_with_snapshots``
+above replays the step's CUDA graphs (``niwqg_tpu_torch/graphs.py``).
+K1's kernels count their own launches on the card, so a replayed launch
+counts as any other (``csplit_mm.counts``). K1's ``launches`` in the
+result line counts phases 4, 8 and 9, each with its graph runs.
 
 The line before the last holds the card's name and power limit; the one
 before it the kernels' JSON record; the last line is
@@ -168,6 +185,23 @@ QG_LEAD = 4
 # arithmetic with sums and transforms taken in another order
 SHARD_RTOL = 1e-5
 ROUTE_RTOL = 1e-6         # K2 route vs all_to_all_single route, same steps
+# phase 10: steps of each run, the status line's cadence (a chunk ends
+# there), and the limit of a graph run against the eager loop where the
+# two are not bitwise equal
+GRAPH_STEPS, GRAPH_TWRITE = 10, 5
+GRAPH_RTOL = 1e-6
+# the cadence of the models that phase 10 holds (phases 4, 5 and 8 build
+# them so): a sample every step, GRAPH_STEPS to tmax after a phase's steps
+GRAPH_RUN = dict(tdiags=1, twrite=GRAPH_TWRITE,
+                 tmax=(WARM_STEPS + TIMED_STEPS + GRAPH_STEPS) * DT)
+GRAPH_LABEL = {"CoupledModel": "CoupledModel, K1 configuration",
+               "q_half": "CoupledModel, f32 cuFFT, q_half",
+               **{name: f"{name}, K1 configuration"
+                  for name in K1_PER_STEP_FAMILY},
+               "QGModel": "QGModel + scalar, f32 cuFFT"}
+K1_MODEL = dict(backend="mxu", dtype=np.float32, precision="split",
+                transform_opts=K1_TRANSFORM)
+WAVE_FIELDS = ("q", "phi", "Ke")
 
 
 def log(*args):
@@ -261,19 +295,15 @@ def flagship(CoupledModel, ic, nx=NX, packet=False, **kw):
 def qg_flagship(QGModel, ic, nx=NX, **kw):
     """The QG(+scalar) counterpart of ``flagship`` (its grid, dt and
     hyperviscosity), with ``__graft_entry__._run_qg``'s mean flow U=-U0,
-    beta=1e-11 and plane-wave tracer."""
-    m = QGModel.Model(L=2 * np.pi * 200e3, nx=nx, dt=157.0, tmax=157.0 * 100,
-                      use_filter=True, nu4=7.5e9, U=-U0, beta=1e-11,
-                      passive_scalar=True, **kw)
+    beta=1e-11 and plane-wave tracer. ``kw`` may override ``tmax``."""
+    kw = {"tmax": DT * 100, **kw}
+    m = QGModel.Model(L=2 * np.pi * 200e3, nx=nx, dt=DT, use_filter=True,
+                      nu4=7.5e9, U=-U0, beta=1e-11, passive_scalar=True,
+                      **kw)
     k0 = 10 * (2 * np.pi / m.L)
     m.set_q(ic.LambDipole(m, U=U0, R=2 * np.pi / k0))
     m.set_c(np.real(ic.PlaneWave(m, k=k0, l=k0)) * 1e-2)
     return m
-
-
-def zero_k1_counts(mm):
-    for c in ("launches", "launches_tc", "launches_f32", "cpu_calls"):
-        setattr(mm.csplit_matmul, c, 0)
 
 
 def timed_steps(torch, m, fields):
@@ -291,8 +321,8 @@ def timed_steps(torch, m, fields):
 
 def family_phase(torch, mm):
     """Phase 8: UnCoupled, QL and YBJ in the K1 configuration, QG (+scalar)
-    in f32 on cuFFT, each against its f64 cuFFT run. Returns the K1
-    launches of the three wave runs."""
+    in f32 on cuFFT, each against its f64 cuFFT run and held by phase 10's
+    ``graph_check``. Returns the K1 launches of the three wave models."""
     import niwqg_tpu_torch as pkg
     from niwqg_tpu_torch import InitialConditions as ic
 
@@ -318,16 +348,16 @@ def family_phase(torch, mm):
         # Coupled model too (tools/probe_wave_budgets.py, PERF.md). YBJ
         # integrates no budgets.
         shown = () if name == "YBJModel" else ("Pw", "Kw")
-        count = mm.csplit_matmul
-        zero_k1_counts(mm)
+        torch.cuda.reset_peak_memory_stats()
+        mm.reset_counts()
         t0 = time.perf_counter()
-        m = flagship(mod, ic, packet=True, backend="mxu", dtype=np.float32,
-                     precision="split", transform_opts=K1_TRANSFORM)
+        m = flagship(mod, ic, packet=True, **K1_MODEL, **GRAPH_RUN)
         torch.cuda.synchronize()
         t_build = time.perf_counter() - t0
-        n_set = count.launches
+        n_set = mm.counts()["launches"]
         s32, wall = timed_steps(torch, m, fields + shown)
-        n = count.launches
+        count = mm.counts()
+        n = count["launches"]
         n_steps = n - n_set
         launches += n
         log(f"{name} (K1 configuration, {type(m.kernel).__name__}): built "
@@ -336,11 +366,11 @@ def family_phase(torch, mm):
             f"({1e3 * wall / TIMED_STEPS:.1f} ms/step); K1 launches: "
             f"set_q/set_phi {n_set}, steps {n_steps} "
             f"({n_steps / (WARM_STEPS + TIMED_STEPS):.1f}/step), "
-            f"{count.launches_tc} on the tensor-core route")
-        check(count.cpu_calls == 0, f"{name}: K1 ran its plain version")
+            f"{count['launches_tc']} on the tensor-core route")
+        check(count["cpu_calls"] == 0, f"{name}: K1 ran its plain version")
         check(n_steps == per_step * (WARM_STEPS + TIMED_STEPS),
               f"{name}: expected {per_step} K1 launches per step")
-        check(count.launches_tc == n and count.launches_f32 == 0,
+        check(count["launches_tc"] == n and count["launches_f32"] == 0,
               f"{name}: K1 launches off the tensor-core route")
         q_end, phi_end = m.q, m.phi
         check(np.isfinite(q_end).all() and np.isfinite(phi_end).all()
@@ -350,6 +380,8 @@ def family_phase(torch, mm):
             k0 = 10 * (2 * np.pi / m.L)
             q0 = ic.LambDipole(m, U=U0, R=2 * np.pi / k0).astype(np.float32)
             check(np.array_equal(q_end, q0), "YBJModel: q moved")
+        launches += graph_check(torch, mm, GRAPH_LABEL[name], m, per_step,
+                                WAVE_FIELDS)
         del m
         torch.cuda.empty_cache()
         m64 = flagship(mod, ic, packet=True, backend="native",
@@ -361,9 +393,11 @@ def family_phase(torch, mm):
         torch.cuda.empty_cache()
 
     qg_fields = ("q", "c", "Ke", "cvar")
-    zero_k1_counts(mm)
+    torch.cuda.reset_peak_memory_stats()
+    mm.reset_counts()
     t0 = time.perf_counter()
-    m = qg_flagship(pkg.QGModel, ic, backend="native", dtype=np.float32)
+    m = qg_flagship(pkg.QGModel, ic, backend="native", dtype=np.float32,
+                    **GRAPH_RUN)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     s32, wall = timed_steps(torch, m, qg_fields)
@@ -373,9 +407,12 @@ def family_phase(torch, mm):
         f"ms/step)")
     check(np.isfinite(m.q).all() and np.isfinite(m.c).all()
           and math.isfinite(m.cvar), "QGModel: non-finite state")
-    check(mm.csplit_matmul.launches == 0 and mm.csplit_matmul.cpu_calls == 0,
+    count = mm.counts()
+    check(count["launches"] == 0 and count["cpu_calls"] == 0,
           "QGModel on cuFFT called K1")
+    graph_check(torch, mm, GRAPH_LABEL["QGModel"], m, None, ("q", "c", "Ke"))
     del m
+    torch.cuda.empty_cache()
     m64 = qg_flagship(pkg.QGModel, ic, backend="native", dtype=np.float64)
     m64.run_steps(WARM_STEPS)
     cross("QGModel", s32, {k: getattr(m64, k) for k in qg_fields}, qg_fields)
@@ -401,19 +438,16 @@ def io_phase(torch, mm, main_sps):
     from niwqg_tpu_torch import InitialConditions as ic
     from niwqg_tpu_torch import io as nio
 
-    count = mm.csplit_matmul
     tmp = tempfile.mkdtemp(prefix="niwqg_io_")
     snapdir = os.path.join(tmp, "snapshots")
     try:
-        zero_k1_counts(mm)
+        mm.reset_counts()
         t0 = time.perf_counter()
-        m = flagship(CoupledModel, ic, backend="mxu", dtype=np.float32,
-                     precision="split", transform_opts=K1_TRANSFORM,
-                     tdiags=1, tsave_snapshots=IO_SNAP_EVERY,
-                     tmax=IO_STEPS * DT)
+        m = flagship(CoupledModel, ic, **K1_MODEL, tdiags=1,
+                     tsave_snapshots=IO_SNAP_EVERY, tmax=IO_STEPS * DT)
         torch.cuda.synchronize()
         t_build = time.perf_counter() - t0
-        n_set = count.launches
+        n_set = mm.counts()["launches"]
         # the Saver that save_to_disk=True builds, without its HDF5 setup
         # and diagnostics files; the step loop calls it every
         # tsave_snapshots steps, and the time of each call and of the
@@ -431,11 +465,11 @@ def io_phase(torch, mm, main_sps):
         def timed_snapshot(model, fields):
             nonlocal snap_launches
             torch.cuda.synchronize()
-            n0, t0 = count.launches, time.perf_counter()
+            n0, t0 = mm.counts()["launches"], time.perf_counter()
             save_snapshot(model, fields)
             torch.cuda.synchronize()
             snap_ms.append(1e3 * (time.perf_counter() - t0))
-            snap_launches += count.launches - n0
+            snap_launches += mm.counts()["launches"] - n0
 
         saver.save_snapshot, m.get_field = timed_snapshot, timed_get_field
 
@@ -449,7 +483,7 @@ def io_phase(torch, mm, main_sps):
                 save_s = time.perf_counter() - t0
         torch.cuda.synchronize()  # run_with_snapshots drained the writer
         wall = time.perf_counter() - t_start - save_s
-        n_pass1 = count.launches - n_set
+        n_pass1 = mm.counts()["launches"] - n_set
         fields = ("q", "phi", "Ke", "Pw", "Kw")
         end = {k: getattr(m, k) for k in fields}
         series = {k: v["value"].copy() for k, v in m.diagnostics.items()}
@@ -477,10 +511,9 @@ def io_phase(torch, mm, main_sps):
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         check(m.tc == 2, f"phase 9: the checkpoint resumed at step {m.tc}")
-        n0 = count.launches
+        n0 = mm.counts()["launches"]
         m.run()
-        torch.cuda.synchronize()
-        n_pass2 = count.launches - n0
+        n_pass2 = mm.counts()["launches"] - n0
         for k, v in end.items():
             check(np.array_equal(getattr(m, k), v),
                   f"phase 9: {k} after the resume differs from the first "
@@ -492,6 +525,7 @@ def io_phase(torch, mm, main_sps):
         shutil.rmtree(tmp, ignore_errors=True)
 
     per_step = K1_PER_STEP + K1_PER_DIAG
+    count = mm.counts()
     log(f"phase 9 (IO, K1 configuration, tdiags=1, a snapshot every "
         f"{IO_SNAP_EVERY} steps): built in {t_build:.1f} s; "
         f"run_with_snapshots, {IO_STEPS} steps in {wall:.3f} s = "
@@ -514,17 +548,19 @@ def io_phase(torch, mm, main_sps):
         "pass bitwise (q, phi, Ke, Pw, Kw and every diagnostic series)")
     log(f"  K1 launches: set_q/set_phi {n_set}, first pass {n_pass1} "
         f"({n_pass1 / IO_STEPS:.1f}/step), resumed pass {n_pass2}; "
-        f"{count.launches_tc} of {count.launches} on the tensor-core route; "
+        f"{count['launches_tc']} of {count['launches']} on the tensor-core "
+        f"route; "
         f"card {smi_name_power()}")
     check(snap_launches == 0, "phase 9: a snapshot launched K1")
-    check(count.cpu_calls == 0, "phase 9: K1 ran its plain version")
+    check(count["cpu_calls"] == 0, "phase 9: K1 ran its plain version")
     check(n_pass1 == per_step * IO_STEPS
           and n_pass2 == per_step * (IO_STEPS - 2),
           f"phase 9: expected {per_step} K1 launches per step "
           f"({K1_PER_STEP} a step, {K1_PER_DIAG} a diagnostics sample)")
-    check(count.launches_tc == count.launches and count.launches_f32 == 0,
+    check(count["launches_tc"] == count["launches"]
+          and count["launches_f32"] == 0,
           "phase 9: K1 launches off the tensor-core route")
-    return count.launches
+    return count["launches"]
 
 
 def k1_planes(torch, mm, M, K, N, seed, dft):
@@ -549,11 +585,10 @@ def k1_record(torch, mm, M, K, N, seed, dft, reps):
     args, br, bi = k1_planes(torch, mm, M, K, N, seed, dft)
     ar, ai = args[:2]
     route = mm.route(M, N, K)
-    count = mm.csplit_matmul
-    before = (count.launches, count.launches_tc, count.launches_f32)
+    keys = ("launches", "launches_tc", "launches_f32")
+    before = tuple(map(mm.counts().get, keys))
     re, im = mm.csplit_matmul(*args)
-    torch.cuda.synchronize()
-    after = (count.launches, count.launches_tc, count.launches_f32)
+    after = tuple(map(mm.counts().get, keys))
     want = (1, 1, 0) if route == "tc" else (1, 0, 1)
     check(tuple(y - x for x, y in zip(before, after)) == want,
           f"K1 at {(M, K, N)}: route {route!r} expected, counters moved "
@@ -1034,6 +1069,206 @@ def _ragged_k2(torch, mesh, rank, group):
     return out
 
 
+def graph_configs(pkg):
+    """Phase 10's configurations, as phases 4, 5 and 8 build them: (label,
+    a function that builds the model, K1 launches per step or None where
+    K1 does not run, fields held)."""
+    from niwqg_tpu_torch import InitialConditions as ic
+
+    cufft = dict(backend="native", dtype=np.float32, **GRAPH_RUN)
+    out = [(GRAPH_LABEL["CoupledModel"],
+            lambda: flagship(pkg.CoupledModel, ic, **K1_MODEL, **GRAPH_RUN),
+            K1_PER_STEP, WAVE_FIELDS),
+           (GRAPH_LABEL["q_half"],
+            lambda: flagship(pkg.CoupledModel, ic, **cufft, fast=True,
+                             q_half=True), None, WAVE_FIELDS)]
+    for name, per_step in K1_PER_STEP_FAMILY.items():
+        out.append((GRAPH_LABEL[name],
+                    lambda name=name: flagship(getattr(pkg, name), ic,
+                                               packet=True, **K1_MODEL,
+                                               **GRAPH_RUN),
+                    per_step, WAVE_FIELDS))
+    out.append((GRAPH_LABEL["QGModel"],
+                lambda: qg_flagship(pkg.QGModel, ic, **cufft), None,
+                ("q", "c", "Ke")))
+    return out
+
+
+def graph_phase(torch, mm):
+    """Phase 10 alone (``--phases 10``): each configuration of
+    ``graph_configs`` built, stepped as its phase steps it, and held by
+    ``graph_check``; a full run makes these checks inside phases 4, 5 and
+    8, on the models those phases build."""
+    import niwqg_tpu_torch as pkg
+
+    for label, build, per_step, fields in graph_configs(pkg):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        m = build()
+        m.run_steps(WARM_STEPS + TIMED_STEPS)
+        graph_check(torch, mm, label, m, per_step, fields)
+        del m
+        torch.cuda.empty_cache()
+
+
+def graph_check(torch, mm, label, m, per_step, fields):
+    """Phase 10 on one model, built with ``GRAPH_RUN`` and stepped
+    WARM_STEPS + TIMED_STEPS by its phase (peak memory counts from its
+    build): ``run()`` (a diagnostics sample every step, a status line
+    every GRAPH_TWRITE) and ``run_steps`` as replayed CUDA graphs, each
+    from the same state as the eager loop it is held to (``_step_forward``
+    for ``run()``, ``kernel.step`` for ``run_steps``), over GRAPH_STEPS:
+    bit for bit expected, GRAPH_RTOL otherwise, on the fields and every
+    series; K1's launches in every run (counted on the card) against the
+    eager loop's, and in one replay of each graph (A: a step; B: a step
+    with a sample) against the pins, all on the tensor-core route;
+    diagnostics fetches per chunk; steps/s of each with graphs (``run()``:
+    a second run, B captured; A was captured by the phase's own steps) and
+    eagerly; capture ms and peak memory (since the build, graph A live
+    throughout). Returns K1's launches in the graph runs."""
+    from niwqg_tpu_torch import io as nio
+    from niwqg_tpu_torch.diagnostics import SeriesAccumulator
+
+    tc0 = m.tc
+    check(m._count_steps(m.params.tmax) == GRAPH_STEPS
+          and tc0 % GRAPH_TWRITE == 0,
+          f"phase 10, {label}: not built with GRAPH_RUN's cadence")
+    chunks = -(-GRAPH_STEPS // GRAPH_TWRITE)
+
+    def reset(m, start):
+        nio.restore_tree(m, start)
+        m._diag_acc = SeriesAccumulator(m.registry)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def rel(a, b):
+        a = np.asarray(a).astype(np.result_type(a, np.float64))
+        b = np.asarray(b).astype(a.dtype)
+        return float(np.abs(a - b).max(initial=0.0)
+                     / max(float(np.abs(b).max(initial=0.0)), 1e-300))
+
+    def held(what, ref, series=None):
+        """The largest relative difference of ``fields`` (and the series)
+        to ``ref``; exact equality is reported as bitwise."""
+        d, exact = 0.0, True
+        for k in fields:
+            a = getattr(m, k)
+            exact &= bool(np.array_equal(a, ref[k]))
+            d = max(d, rel(a, ref[k]))
+        for k, v in (series or {}).items():
+            a = m.diagnostics[k]["value"]
+            exact &= bool(np.array_equal(a, v))
+            d = max(d, rel(a, v))
+        check(d <= GRAPH_RTOL, f"phase 10, {label}: {what} is {d:.3e} off "
+              f"the eager loop (limit {GRAPH_RTOL})")
+        return "bitwise" if exact else f"{d:.3e}"
+
+    def k1_launches(what):
+        c = mm.counts()
+        check(c["cpu_calls"] == 0 and c["launches_f32"] == 0
+              and c["launches_tc"] == c["launches"],
+              f"phase 10, {label}: K1 off the tensor-core route in {what}")
+        return c["launches"]
+
+    start = nio.checkpoint_tree(m)
+    # an eager step, a sample and a status line first, so that the eager
+    # loop is timed without its one-time costs (cuFFT plans, the grid's
+    # lazy tables), as the graphs' second runs are
+    m._step_forward()
+    m._print_status()
+    # the eager loops: the references
+    reset(m, start)
+    mm.reset_counts()
+    eager_run = timed(lambda: [m._step_forward()
+                               for _ in range(GRAPH_STEPS)])
+    n_eager = [k1_launches("the eager run")]
+    ref = {k: getattr(m, k) for k in fields}
+    series = {k: v["value"].copy() for k, v in m.diagnostics.items()}
+    reset(m, start)
+
+    def eager_steps():
+        for _ in range(GRAPH_STEPS):
+            m.state = m.kernel.step(m.state)
+
+    mm.reset_counts()
+    eager_steps_s = timed(eager_steps)
+    n_eager.append(k1_launches("the eager steps"))
+    ref_steps = {k: getattr(m, k) for k in fields}
+    eager_peak = torch.cuda.max_memory_allocated()
+    # the graphs: run() twice (the first captures B), then run_steps, each
+    # from the start
+    times, n_launch = [], []
+    for i, fn in enumerate((m.run, m.run,
+                            lambda: m.run_steps(GRAPH_STEPS))):
+        reset(m, start)
+        mm.reset_counts()
+        times.append(timed(fn))
+        n_launch.append(k1_launches("a graph run"))
+        if i < 2:
+            run_d = held("run()", ref, series)
+            fetches = m._diag_acc.fetches
+    steps_d = held("run_steps", ref_steps)
+    runner = m._runner
+    check(runner.graphs, f"phase 10, {label}: no graphs on one card")
+    # one replay of A, then one of B (tdiags=1: a sample at every step)
+    reset(m, start)
+    per_replay = []
+    for diags in (False, True):
+        r = runner.replays
+        mm.reset_counts()
+        runner.advance(1, diags=diags)
+        per_replay.append(k1_launches("one replay"))
+        check(runner.replays == r + 1,
+              f"phase 10, {label}: a step of the graph run was no replay")
+    launches = sum(n_launch) + sum(per_replay)
+    if per_step is None:
+        check(launches == 0, f"phase 10, {label}: K1 was called")
+        k1 = "none (cuFFT)"
+    else:
+        per_a, per_b = per_replay
+        if label == GRAPH_LABEL["CoupledModel"]:
+            check(per_b == per_step + K1_PER_DIAG,
+                  f"phase 10, {label}: {per_b} K1 launches in a replay of "
+                  f"B, expected {per_step + K1_PER_DIAG}")
+        check(per_a == per_step,
+              f"phase 10, {label}: {per_a} K1 launches in a replay of A, "
+              f"expected {per_step}")
+        # the status lines launch K1 too (pe_niw's gradients), in both
+        # loops alike
+        check(n_eager[1] == per_step * GRAPH_STEPS
+              and n_launch == [n_eager[0]] * 2 + [n_eager[1]],
+              f"phase 10, {label}: K1 launches {n_launch} in the graph "
+              f"runs, {n_eager} in the eager loops")
+        k1 = (f"{per_a} in one replay of A, {per_b} in one of B (counted "
+              f"on the card), all tensor-core; {n_launch[0]} in run() as "
+              "in the eager loop, status lines included")
+    check(fetches == chunks, f"phase 10, {label}: {fetches} diagnostics "
+          f"fetches for {chunks} chunks")
+    peak = torch.cuda.max_memory_allocated()
+    sps = lambda t: f"{GRAPH_STEPS / t:.3f}"
+    log(f"phase 10 {label}: run() vs the eager _step_forward loop "
+        f"{run_d}, run_steps vs the eager step loop {steps_d} "
+        f"(q, phi/c, Ke and every series over {GRAPH_STEPS} steps; "
+        f"limit {GRAPH_RTOL} where not bitwise); K1 {k1}; "
+        f"diagnostics fetches {fetches / chunks:.0f} per chunk "
+        f"({fetches} in {chunks} chunks, a sample every step)")
+    log(f"  steps/s: run() {sps(times[1])} with graphs (first run, "
+        f"with the eager step and capture of graph B: {sps(times[0])}), "
+        f"{sps(eager_run)} eagerly; run_steps {sps(times[2])} with graphs, "
+        f"{sps(eager_steps_s)} eagerly; "
+        f"capture {runner.capture_ms():.1f} ms for both graphs; peak memory "
+        f"since the build {peak / 2**20:.0f} MiB (before the capture of B "
+        f"{eager_peak / 2**20:.0f} MiB); card {smi_name_power()}")
+    check(all(np.isfinite(np.asarray(getattr(m, k))).all()
+              for k in fields), f"phase 10, {label}: non-finite state")
+    return launches
+
+
 def has_h5py() -> bool:
     try:
         import h5py  # noqa: F401
@@ -1287,13 +1522,13 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10",
                     help="phases to run beyond the card report and the "
                          "build (default: all; a partial run is for "
                          "debugging and prints no result lines)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",") if x}
-    full = phases >= {3, 4, 5, 6, 7, 8, 9}
+    full = phases >= {3, 4, 5, 6, 7, 8, 9, 10}
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1312,6 +1547,15 @@ def main(argv=None) -> int:
     from niwqg_tpu_torch.device import full_fp32_matmul
     from niwqg_tpu_torch.ops import csplit_mm as mm
     from niwqg_tpu_torch.parallel import a2a
+
+    laps, t_lap = [], time.perf_counter()
+
+    def lap(phase):
+        """Note the wall time since the last lap as ``phase``'s."""
+        nonlocal t_lap
+        now = time.perf_counter()
+        laps.append(f"{phase} {now - t_lap:.0f} s")
+        t_lap = now
 
     # -- 1. the card and the software -------------------------------------
     card = smi_name_power()
@@ -1335,6 +1579,7 @@ def main(argv=None) -> int:
                     if "registers" in line or "spill" in line:
                         log(f"  {name}: {line.strip()}")
 
+    lap("1-2")
     refs = {}
     if 6 in phases and not full:
         k2_phase(torch, a2a)
@@ -1344,6 +1589,8 @@ def main(argv=None) -> int:
         family_phase(torch, mm)
     if 9 in phases and not full:
         io_phase(torch, mm, None)
+    if 10 in phases and not full:
+        graph_phase(torch, mm)
     if not full:
         log("partial run: no result lines")
         return 0
@@ -1353,20 +1600,21 @@ def main(argv=None) -> int:
     k1_record(torch, mm, 520, 384, 264, seed=2, dft=False, reps=0)  # ragged
     k1_record(torch, mm, 130, 17, 65, seed=3, dft=False, reps=0)  # f32 route
     k1_mean_mode(torch, mm)
+    lap("3")
 
     # -- 4. the main path ------------------------------------------------------
-    zero_k1_counts(mm)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mm.reset_counts()
     t0 = time.perf_counter()
-    m = flagship(CoupledModel, ic, backend="mxu", dtype=np.float32,
-                 precision="split", transform_opts=K1_TRANSFORM)
+    m = flagship(CoupledModel, ic, **K1_MODEL, **GRAPH_RUN)
     torch.cuda.synchronize()
     log(f"flagship f32 K1 model built and initialised in "
         f"{time.perf_counter() - t0:.1f} s ({type(m.kernel).__name__}, "
         f"q_half={m.kernel.q_half})")
-    n_set = mm.csplit_matmul.launches
+    n_set = mm.counts()["launches"]
     m.run_steps(WARM_STEPS)
-    torch.cuda.synchronize()
-    n_warm = mm.csplit_matmul.launches - n_set
+    n_warm = mm.counts()["launches"] - n_set
     q32, phi32, ke32 = m.q, m.phi, m.Ke
     t0 = time.perf_counter()
     m.run_steps(TIMED_STEPS)
@@ -1374,30 +1622,33 @@ def main(argv=None) -> int:
     ke_end = m.Ke
     wall = time.perf_counter() - t0
     main_sps = TIMED_STEPS / wall
-    launches = mm.csplit_matmul.launches
+    count = mm.counts()
+    launches = count["launches"]
     n_timed = launches - n_set - n_warm
     log(f"main path: {TIMED_STEPS} steps in {wall:.3f} s = "
         f"{TIMED_STEPS / wall:.3f} steps/s ({1e3 * wall / TIMED_STEPS:.1f} "
         f"ms/step); K1 launches: set_q/set_phi {n_set}, warm-up {n_warm}, "
         f"timed {n_timed} ({n_timed / TIMED_STEPS:.1f}/step)")
-    check(mm.csplit_matmul.cpu_calls == 0, "K1 ran its plain version")
+    check(count["cpu_calls"] == 0, "K1 ran its plain version")
     check(n_warm == K1_PER_STEP * WARM_STEPS
           and n_timed == K1_PER_STEP * TIMED_STEPS,
           f"expected {K1_PER_STEP} K1 launches per step")
-    check(mm.csplit_matmul.launches_tc == launches
-          and mm.csplit_matmul.launches_f32 == 0,
+    check(count["launches_tc"] == launches and count["launches_f32"] == 0,
           f"the main path's {launches} K1 launches did not all take the "
-          f"tensor-core route ({mm.csplit_matmul.launches_tc} did, "
-          f"{mm.csplit_matmul.launches_f32} took the f32-FMA route)")
+          f"tensor-core route ({count['launches_tc']} did, "
+          f"{count['launches_f32']} took the f32-FMA route)")
     log(f"all {launches} K1 launches of the main path took the tensor-core "
         "route")
     q, phi = m.q, m.phi
     check(np.isfinite(q).all() and np.isfinite(phi).all()
           and math.isfinite(ke_end), "non-finite state after the main path")
     check(q.shape == (NX, NX) and phi.shape == (NX, NX), "bad state shape")
-    rec["launches"] = launches
+    rec["launches"] = launches + graph_check(
+        torch, mm, GRAPH_LABEL["CoupledModel"], m, K1_PER_STEP, WAVE_FIELDS)
     del m
     torch.cuda.empty_cache()
+
+    lap("4")
 
     # -- 5. cross-check: f64 on cuFFT ------------------------------------------
     t0 = time.perf_counter()
@@ -1422,8 +1673,9 @@ def main(argv=None) -> int:
     # with the full-spectrum q side the mesh runs (q_half=False), and with
     # the one-card default (q_half=True) for its steps per second
     for q_half in (False, True):
+        torch.cuda.reset_peak_memory_stats()
         m32 = flagship(CoupledModel, ic, backend="native", dtype=np.float32,
-                       fast=True, q_half=q_half)
+                       fast=True, q_half=q_half, **GRAPH_RUN)
         m32.run_steps(WARM_STEPS)
         torch.cuda.synchronize()
         if not q_half:
@@ -1438,14 +1690,20 @@ def main(argv=None) -> int:
             f"{TIMED_STEPS / wall:.3f} steps/s "
             f"({1e3 * wall / TIMED_STEPS:.1f} ms/step)")
         check(math.isfinite(ke_end), "non-finite Ke on the one-card f32 run")
+        if q_half:
+            graph_check(torch, mm, GRAPH_LABEL["q_half"], m32, None,
+                        WAVE_FIELDS)
         del m32
         torch.cuda.empty_cache()
 
+    lap("5")
     # the one-card references of phase 7's other models
     frefs = family_refs(torch)
+    lap("7's one-card references")
 
     # -- 6. K2 against its plain version ---------------------------------------
     k2_recs, ncards = k2_phase(torch, a2a)
+    lap("6")
 
     # -- 7. the sharded main path ------------------------------------------------
     launches, lib, k2_dev = sharded_phase(torch, refs, frefs)
@@ -1457,11 +1715,15 @@ def main(argv=None) -> int:
             # a process per rank (the bound is the same as phase 6's)
             k2_recs[name]["ms"] = k2_dev[i]
 
+    lap("7")
+
     # -- 8. the model family ------------------------------------------------------
     rec["launches"] += family_phase(torch, mm)
+    lap("8")
 
     # -- 9. output, run_with_snapshots and a checkpoint -----------------------
     rec["launches"] += io_phase(torch, mm, main_sps)
+    lap("9")
 
     order = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")
@@ -1477,6 +1739,8 @@ def main(argv=None) -> int:
     log(f"the sharded phases ran {NRANKS} ranks on {ncards} card(s)"
         + ("" if ncards == NRANKS else ": their times were taken with "
            "ranks sharing a card and are not multi-card times"))
+    log("wall time by phase (4, 5 and 8 with their phase-10 checks): "
+        + ", ".join(laps))
     print(json.dumps({"kernels": kernels}))
     print(smi_name_power())
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,7 @@ import torch
 from . import diagnostics as diag_mod
 from .device import default_dtype, resolve_device
 from .diagnostics import SeriesAccumulator
+from .graphs import StepRunner
 from .io import Saver, load_checkpoint, require_h5py, save_checkpoint
 from .models.coupled import CoupledPhysics
 from .models.kernel import KernelParams, WaveKernel
@@ -112,6 +113,10 @@ class _ModelBase:
         self.saver = Saver(path, save_to_disk, overwrite,
                            snapshot_format=snapshot_format, mesh=mesh)
         self.saver.save_setup(self)
+        # run(), run_with_snapshots() and run_steps() advance through it:
+        # replayed CUDA graphs on one card, direct calls on the host and
+        # on a mesh (graphs.py)
+        self._runner = StepRunner(self)
 
     def _take_mesh(self, mesh, device):
         """Set ``self.device`` and ``self._mesh``; a mesh must be the
@@ -334,7 +339,10 @@ class _ModelBase:
         ``_calc_pe_niw`` does (``run_steps`` refreshes nothing). The
         cadence reads the step counter alone, so on a mesh every rank
         takes the same branches, and the collectives inside them
-        (transforms, sums, gathers) line up."""
+        (transforms, sums, gathers) line up.
+
+        This is the per-step reference loop: :meth:`run` advances in
+        chunks (:meth:`_advance_chunked`) and must match it exactly."""
         p = self.params
         tc_before = self.state.tc
         t_prev = self.state.t
@@ -351,14 +359,57 @@ class _ModelBase:
         if self.saver.save_to_disk and tc_now % p.tsave_snapshots == 0:
             self.saver.save_snapshot(self, self._snapshot_fields())
 
+    def _host_event_strides(self, extra_stride=None):
+        """The cadences that need the host between chunks: the status line
+        every ``twrite`` steps, a snapshot every ``tsave_snapshots`` (when
+        saving) and the caller's stride. Diagnostics are not among them:
+        the chunks sample them on the device."""
+        p = self.params
+        strides = [int(p.twrite)]
+        if self.saver.save_to_disk:
+            strides.append(int(p.tsave_snapshots))
+        if extra_stride:
+            strides.append(int(extra_stride))
+        return strides
+
+    def _advance_chunked(self, nsteps: int, extra_stride=None):
+        """Advance ``nsteps`` steps in chunks (``graphs.StepRunner``) that
+        end exactly at the host events, then take the events as
+        :meth:`_step_forward` does: the status line, the refresh after it
+        in the stale-gradient mode, the snapshot. Yields the post-step
+        counter at every chunk's end, so that a caller can add its own
+        event. A state set between chunks (``set_q``, ``load_checkpoint``)
+        is what the next chunk starts from."""
+        p = self.params
+        strides = self._host_event_strides(extra_stride)
+        done = 0
+        while done < nsteps:
+            tc0 = self.tc
+            n = nsteps - done
+            for m in strides:
+                # the next post-step multiple of m after tc0
+                n = min(n, (tc0 // m + 1) * m - tc0)
+            self._runner.advance(n)
+            done += n
+            tc_now = tc0 + n
+            if tc_now % p.twrite == 0:
+                self._print_status()
+                if self._stale_grads:
+                    self.state = self.kernel.refresh_phi_gradients(self.state)
+            if self.saver.save_to_disk and tc_now % p.tsave_snapshots == 0:
+                self.saver.save_snapshot(self, self._snapshot_fields())
+            yield tc_now
+
     def run(self):
-        """Run to ``tmax`` with the reference's per-step cadence; with
-        ``save_to_disk`` a snapshot before the first step and
-        ``diagnostics.h5`` at the end."""
+        """Run to ``tmax`` with the reference's per-step cadence, in chunks
+        between host events; with ``save_to_disk`` a snapshot before the
+        first step and ``diagnostics.h5`` at the end. The steps, the state,
+        the diagnostic series and the print and snapshot cadence are those
+        of the per-step loop (:meth:`_step_forward`)."""
         if self.saver.save_to_disk:
             self.saver.save_snapshot(self, self._snapshot_fields())
-        for _ in range(self._count_steps(self.params.tmax)):
-            self._step_forward()
+        for _ in self._advance_chunked(self._count_steps(self.params.tmax)):
+            pass
         if self.saver.save_to_disk:
             self.saver.save_diagnostics(self.diagnostics)
 
@@ -367,15 +418,16 @@ class _ModelBase:
         first snapshot, no ``diagnostics.h5``) and yields the time after
         every step whose counter is a multiple of ``ceil(tsnapint / dt)``
         once ``t >= tsnapstart``, so that the caller can inspect the live
-        model. Queued snapshot writes are drained at the end (on a mesh a
-        collective: a failed write raises on every rank); when an
-        exception is already propagating their errors are logged, not
-        raised over it."""
+        model; the chunks end at those steps too. Queued snapshot writes
+        are drained at the end (on a mesh a collective: a failed write
+        raises on every rank); when an exception is already propagating
+        their errors are logged, not raised over it."""
         tsnapints = int(np.ceil(tsnapint / self.params.dt))
         try:
-            for _ in range(self._count_steps(self.params.tmax)):
-                self._step_forward()
-                if self.t >= tsnapstart and self.tc % tsnapints == 0:
+            for tc_now in self._advance_chunked(
+                    self._count_steps(self.params.tmax),
+                    extra_stride=tsnapints):
+                if self.t >= tsnapstart and tc_now % tsnapints == 0:
                     yield self.t
         except GeneratorExit:  # the caller stopped early: a normal end
             self.saver.drain()
@@ -386,13 +438,11 @@ class _ModelBase:
         self.saver.drain()
 
     def run_steps(self, n: int):
-        """``n`` steps with no diagnostics or status output."""
-        step = self.kernel.step
-        s = self.state
-        for _ in range(n):
-            s = step(s)
-        self.state = s
-        return s
+        """``n`` steps with no diagnostics or status output (on one card,
+        ``n`` replays of the step's graph). The state returned is the
+        model's own, fresh tensors that no later step overwrites."""
+        self._runner.advance(n, diags=False)
+        return self.state
 
     def _diag_fn(self, state, t_prev):
         raise NotImplementedError

@@ -68,6 +68,10 @@
 //    output element per k; each stage sums into fresh registers that are
 //    then folded into the running sum. Every product is exact before one
 //    rounding, so it is held to the full-f32 plain version.
+//
+// Each kernel counts its own launches: thread 0 of block (0, 0) adds one to
+// a counter in device memory that the caller passes. So a launch replayed
+// from a CUDA graph counts as one launched from the host does.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -109,7 +113,7 @@ csplit_mm_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
                  const float* __restrict__ brh, const float* __restrict__ brl,
                  const float* __restrict__ bih, const float* __restrict__ bil,
                  float* __restrict__ out_re, float* __restrict__ out_im,
-                 int M, int N, int K) {
+                 int M, int N, int K, unsigned long long* launches) {
   __shared__ __align__(16) float s_ar[BK][BM + APAD];
   __shared__ __align__(16) float s_ai[BK][BM + APAD];
   __shared__ __align__(16) float s_brh[BK][BN];
@@ -122,6 +126,9 @@ csplit_mm_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
   const int ty = tid / NTX;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
+  if (tid == 0 && blockIdx.x == 0 && blockIdx.y == 0) {
+    atomicAdd(launches, 1ull);
+  }
 
   float acc_r[TM][TN];
   float acc_i[TM][TN];
@@ -251,19 +258,21 @@ csplit_mm_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
 
 // C entry point, loaded with ctypes. All pointers are device pointers to
 // contiguous row-major f32 arrays: ar, ai (M, K); brh, brl, bih, bil (K, N);
-// out_re, out_im (M, N). Launches on `stream` and returns
+// out_re, out_im (M, N); launches, the kernel's launch counter (one
+// unsigned 64-bit integer). Launches on `stream` and returns
 // cudaGetLastError() (0 on success); it neither synchronises nor allocates.
 extern "C" int csplit_matmul_f32(const float* ar, const float* ai,
                                  const float* brh, const float* brl,
                                  const float* bih, const float* bil,
                                  float* out_re, float* out_im, int M, int N,
-                                 int K, void* stream) {
+                                 int K, unsigned long long* launches,
+                                 void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   csplit_mm_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      ar, ai, brh, brl, bih, bil, out_re, out_im, M, N, K);
+      ar, ai, brh, brl, bih, bil, out_re, out_im, M, N, K, launches);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -449,7 +458,7 @@ csplit_mm_tc_kernel(const __grid_constant__ CUtensorMap map_ar,
                     const __grid_constant__ CUtensorMap map_ai,
                     const __grid_constant__ CUtensorMap map_b,
                     float* __restrict__ out_re, float* __restrict__ out_im,
-                    int M, int N, int K) {
+                    int M, int N, int K, unsigned long long* launches) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ unsigned long long bar_full[TC_STAGES];
   __shared__ unsigned long long bar_empty[TC_STAGES];
@@ -466,6 +475,7 @@ csplit_mm_tc_kernel(const __grid_constant__ CUtensorMap map_ar,
       mbar_init(smem_addr(&bar_empty[s]), TC_CONSUMERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (blockIdx.x == 0 && blockIdx.y == 0) atomicAdd(launches, 1ull);
   }
   __syncthreads();
 
@@ -640,13 +650,14 @@ int encode_planes(CUtensorMap* map, const void* ptr, bool f32, int planes,
 
 // The tensor-core route. ar, ai: (M, K) f32. b_planes: (4, K, N) bf16, the
 // planes re_hi, re_lo, im_hi, im_lo. out_re, out_im: (M, N) f32. M, N, K
-// are multiples of 8 (16-byte rows for the bulk loads). Launches on
-// `stream`; returns 0, a cudaError_t, or a negative code where the tensor
-// maps could not be made (see csplit_error_string).
+// are multiples of 8 (16-byte rows for the bulk loads). launches: the
+// kernel's launch counter. Launches on `stream`; returns 0, a cudaError_t,
+// or a negative code where the tensor maps could not be made (see
+// csplit_error_string).
 extern "C" int csplit_matmul_tc(const float* ar, const float* ai,
                                 const void* b_planes, float* out_re,
                                 float* out_im, int M, int N, int K,
-                                void* stream) {
+                                unsigned long long* launches, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || M % 8 || N % 8 || K % 8) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -666,7 +677,7 @@ extern "C" int csplit_matmul_tc(const float* ar, const float* ai,
   const dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM);
   csplit_mm_tc_kernel<<<grid, TC_THREADS, TC_SMEM,
                         static_cast<cudaStream_t>(stream)>>>(
-      map_ar, map_ai, map_b, out_re, out_im, M, N, K);
+      map_ar, map_ai, map_b, out_re, out_im, M, N, K, launches);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -62,20 +62,32 @@ class Registry:
 
 
 class SeriesAccumulator:
-    """Host-side growing series, one per diagnostic."""
+    """Host-side growing series, one per diagnostic. ``fetches`` counts
+    the transfers from the device: one per :meth:`append` and one per
+    :meth:`append_rows`, whatever its number of samples."""
 
     def __init__(self, registry: Registry):
         self.registry = registry
         self.series: Dict[str, list] = {k: [] for k in registry.entries}
+        self.fetches = 0
 
     def append(self, values: Dict[str, Any]):
         """Append one sample of each value; tensors are fetched from the
         device in one transfer."""
         names = list(values)
-        host = torch.stack([torch.as_tensor(values[k]).reshape(())
-                            for k in names]).cpu().numpy()
-        for k, v in zip(names, host):
-            self.series[k].append(np.asarray(v))
+        self.append_rows(names, torch.stack(
+            [torch.as_tensor(values[k]).reshape(()) for k in names])[None])
+
+    def append_rows(self, names, rows: torch.Tensor):
+        """Append the samples of a ``(samples, len(names))`` tensor, column
+        ``j`` to the series of ``names[j]``, fetched in one transfer; the
+        series come out as :meth:`append` builds them, one sample at a
+        time."""
+        host = rows.cpu().numpy()
+        self.fetches += 1
+        for row in host:
+            for k, v in zip(names, row):
+                self.series[k].append(np.asarray(v))
 
     def as_reference_dict(self) -> Dict[str, dict]:
         """Reference-compatible ``model.diagnostics`` structure."""

@@ -278,7 +278,7 @@ class Grid:
             for c in self.local_cols([0, self.nx // 2]):
                 var_dens[:, c] *= 0.5
         if self.owns_mean_mode:
-            var_dens[0, 0] = 0.0
+            var_dens[0, 0].fill_(0.0)  # no scalar copied from the host
         return all_sum(var_dens.sum(), self.mesh)
 
     # ---- spec_cross ------------------------------------------------------

@@ -168,6 +168,10 @@ class FastWaveKernel(WaveKernel):
         else:
             self._w_eppsi = g._dev(w_eppsi)
 
+        # the Parseval sums' scales, made once (see WaveKernel._dt)
+        self._inv_M = self._s(1.0 / float(g.M))
+        self._inv_M2 = self._s(1.0 / float(g.M) ** 2)
+
         self.fold_filter = bool(fold_filter)
         if self.fold_filter:
             self.coefs_q = fold_filter_into(self.coefs_q, self._flt_q)
@@ -352,7 +356,7 @@ class FastWaveKernel(WaveKernel):
         coefficients, which only the owner of column 0 holds: it
         contributes them (over M) and the others contribute zeros."""
         g = self.grid
-        M2 = self._s(1.0 / float(g.M) ** 2)
+        M2 = self._inv_M2
 
         aphi2 = abs2(phih)
         ep_phi = (self._w_d * aphi2).sum() * M2
@@ -372,11 +376,11 @@ class FastWaveKernel(WaveKernel):
         x1 = M2 * (self._w_d * (pim * jr - pr * ji)).sum()
         x2 = M2 * (self._w_d * (pr * rr + pim * ri)).sum()
         if g.owns_mean_mode:
-            M1 = self._s(1.0 / float(g.M))
+            M1 = self._inv_M
             mean_modes = [pr[0, 0] * M1, pim[0, 0] * M1, rr[0, 0] * M1,
                           ri[0, 0] * M1]
         else:
-            mean_modes = [self._s(0.0)] * 4
+            mean_modes = [self._zero] * 4
         return torch.stack([ep_phi, chi_phi, ep_psi, g1, g2, x1, x2]
                            + mean_modes)
 
@@ -407,7 +411,7 @@ class FastWaveKernel(WaveKernel):
         r = torch.zeros(shape, dtype=self.rdtype, device=self.device)
         D = Derived(ph=zh, p=None if self._drop_p else r, q=r, q_psi=r,
                     qwh=zh, phi=zf, phix=zf, phiy=zf, u=r, v=r)
-        zero = self._s(0.0)
+        zero = torch.zeros((), dtype=self.rdtype, device=self.device)
         return WaveState(t=zero, tc=0, qh=zh, phih=zf, d=D, Ke=zero,
                          Pw=zero, Kw=zero)
 

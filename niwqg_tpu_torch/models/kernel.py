@@ -219,9 +219,17 @@ class WaveKernel:
         # l table for q-side y-derivatives (the fast kernel zeroes its
         # Nyquist row's interior columns in half mode)
         self._l_dy = self.grid.l
+        # scalar constants on the device, made once: a tensor made from a
+        # Python number inside a step is a blocking copy from the host, and
+        # one that a CUDA graph capture refuses
+        self._dt = self._s(params.dt)
+        self._M2 = self._s(float(self.grid.M) ** 2)
+        self._zero = torch.zeros((), dtype=self.rdtype, device=self.device)
 
     # ------------------------------------------------------------------
     def _s(self, x) -> torch.Tensor:
+        """A 0-d tensor of a Python number (a copy from the host: for
+        construction only, never inside a step or a diagnostic)."""
         return torch.tensor(x, dtype=self.rdtype, device=self.device)
 
     @property
@@ -378,7 +386,7 @@ class WaveKernel:
         cq, cw = self.coefs_q, self.coefs_w
         fq, fw = self._flt_q, self._flt_w
         mulf = self._mulf
-        dt = self._s(self.params.dt)
+        dt = self._dt
         want = self.params.compute_budgets
         # QL stage-ordering quirk (jac_reads_updated_qh): the wave RHS is
         # re-evaluated on the just-updated qh, and that Fnw replaces the
@@ -448,7 +456,7 @@ class WaveKernel:
         r = torch.zeros(g.phys_shape, dtype=self.rdtype, device=self.device)
         D = Derived(ph=z, p=None if self._drop_p else r, q=r, q_psi=r,
                     qwh=z, phi=zp, phix=zp, phiy=zp, u=r, v=r)
-        zero = self._s(0.0)
+        zero = torch.zeros((), dtype=self.rdtype, device=self.device)
         return WaveState(t=zero, tc=0, qh=z, phih=z, d=D, Ke=zero, Pw=zero,
                          Kw=zero)
 
@@ -492,8 +500,8 @@ class WaveKernel:
             return self.grid.spec_var(zh)
         dens = abs2(zh) * self._qdeg
         if self.grid.owns_mean_mode:
-            dens[0, 0] = 0.0
-        return self._gsum([dens.sum()])[0] / self._s(float(self.grid.M) ** 2)
+            dens[0, 0].fill_(0.0)  # no scalar copied from the host
+        return self._gsum([dens.sum()])[0] / self._M2
 
     def ke_qg(self, ph):
         return 0.5 * self.spec_var(ph * self.qtab.wv)

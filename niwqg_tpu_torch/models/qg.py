@@ -128,8 +128,13 @@ class QGKernel:
             self.coefs_q = fold_filter_into(self.coefs_q, f)
             if self.coefs_c is not None:
                 self.coefs_c = fold_filter_into(self.coefs_c, f)
+        # dt on the device, made once: a tensor made from a Python number
+        # inside a step is a blocking copy from the host, and one that a
+        # CUDA graph capture refuses
+        self._dt = self._s(p.dt)
 
     def _s(self, x) -> torch.Tensor:
+        """A 0-d tensor of a Python number (construction only)."""
         return torch.tensor(x, dtype=self.rdtype, device=self.device)
 
     # -- domain means (one all_reduce on a mesh) ----------------------------
@@ -275,7 +280,7 @@ class QGKernel:
         cq, cc = self.coefs_q, self.coefs_c
         flt = None if self.fold_filter else self.grid.filtr
         mulf = self._mulf
-        dt = self._s(pr.dt)
+        dt = self._dt
         scalar = pr.passive_scalar
 
         # stage 1
@@ -344,7 +349,7 @@ class QGKernel:
         g = self.grid
         z = torch.zeros(g.spec_shape, dtype=self.cdtype, device=self.device)
         r = torch.zeros(g.phys_shape, dtype=self.rdtype, device=self.device)
-        zero = self._s(0.0)
+        zero = torch.zeros((), dtype=self.rdtype, device=self.device)
         return QGState(t=zero, tc=0, qh=z, ch=z, ph=z, p=r, q=r, c=r, u=r,
                        v=r, Ke=zero, cvar=zero)
 

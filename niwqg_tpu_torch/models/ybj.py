@@ -80,7 +80,7 @@ class YBJKernel(WaveKernel):
         cw = self.coefs_w
         flt = None if self.fold_filter else self.grid.filtr
         mulf = self._mulf
-        dt = self._s(self.params.dt)
+        dt = self._dt
 
         phih0 = s.phih
         Fn0w = self._ybj_nonlinear(phih0, s)

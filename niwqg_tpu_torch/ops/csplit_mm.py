@@ -27,9 +27,13 @@ The B planes of a transform are constants: :func:`prepare_b` converts them
 to bf16 once, and :func:`csplit_matmul_prepared` takes its result. The
 six-plane call prepares on the fly.
 
-``csplit_matmul.launches`` counts kernel launches and nothing else
-(``launches_tc`` and ``launches_f32`` per route);
-``csplit_matmul.cpu_calls`` counts the calls served on the host.
+The kernels count their own launches, on the card: each adds one to its
+route's counter in device memory as it runs, so a launch replayed from a
+CUDA graph counts as one from the host does, and a capture, which runs
+nothing, counts none. :func:`counts` reads them (``launches``, and
+``launches_tc`` and ``launches_f32`` per route) with
+``csplit_matmul.cpu_calls``, the calls served on the host;
+:func:`reset_counts` sets all to 0.
 """
 
 from __future__ import annotations
@@ -165,31 +169,52 @@ def _library():
     lib = load("csplit_mm")
     if lib.csplit_matmul_f32.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.csplit_matmul_f32.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
+        lib.csplit_matmul_f32.argtypes = [ptr] * 8 + [i32] * 3 + [ptr] * 2
         lib.csplit_matmul_f32.restype = i32
-        lib.csplit_matmul_tc.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+        lib.csplit_matmul_tc.argtypes = [ptr] * 5 + [i32] * 3 + [ptr] * 2
         lib.csplit_matmul_tc.restype = i32
         lib.csplit_error_string.argtypes = [i32]
         lib.csplit_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(entry, counter, ar, ai, b_ptrs, M, N, K):
+# the kernels' launch counters of each card (by index), counted on the
+# card: int64 (launches of the tensor-core kernel, of the f32-FMA kernel)
+_ROUTES = ("tc", "f32")
+_LAUNCHES = {}
+
+
+def _launch_counter(device):
+    """The card's launch counters, made at its first launch (which must be
+    outside a capture: a tensor made there would live in the graph's
+    pool)."""
+    c = _LAUNCHES.get(device.index)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("csplit_matmul's first launch on a card "
+                               "cannot be inside a CUDA graph capture")
+        c = _LAUNCHES[device.index] = torch.zeros(
+            len(_ROUTES), dtype=torch.int64, device=device)
+    return c
+
+
+def _launch(route_name, ar, ai, b_ptrs, M, N, K):
     """Launch one of the library's kernels on A's stream; raises if the
     launch is refused."""
     lib = _library()
+    counter = _launch_counter(ar.device)
     out_re = torch.empty((M, N), device=ar.device, dtype=torch.float32)
     out_im = torch.empty((M, N), device=ar.device, dtype=torch.float32)
     with torch.cuda.device(ar.device):
         stream = torch.cuda.current_stream(ar.device).cuda_stream
-        err = getattr(lib, entry)(
+        err = getattr(lib, "csplit_matmul_" + route_name)(
             ar.data_ptr(), ai.data_ptr(), *b_ptrs, out_re.data_ptr(),
-            out_im.data_ptr(), M, N, K, stream)
+            out_im.data_ptr(), M, N, K,
+            counter.data_ptr() + counter.element_size()
+            * _ROUTES.index(route_name), stream)
     if err != 0:
         raise RuntimeError("csplit_matmul kernel launch failed: "
                            + lib.csplit_error_string(err).decode())
-    csplit_matmul.launches += 1
-    setattr(csplit_matmul, counter, getattr(csplit_matmul, counter) + 1)
     return out_re, out_im
 
 
@@ -199,8 +224,7 @@ def csplit_matmul_f32(ar, ai, brh, brl, bih, bil):
     cores; callable on its own to time it beside the other)."""
     planes = (brh, brl, bih, bil)
     M, N, K = _check(ar, ai, planes, need_cuda="csplit_matmul_f32")
-    return _launch("csplit_matmul_f32", "launches_f32", ar, ai,
-                   [t.data_ptr() for t in planes], M, N, K)
+    return _launch("f32", ar, ai, [t.data_ptr() for t in planes], M, N, K)
 
 
 def csplit_matmul_tc(ar, ai, b: PreparedB):
@@ -212,8 +236,7 @@ def csplit_matmul_tc(ar, ai, b: PreparedB):
                          f"{(K, N)}: see route()")
     if b.bf16.device != ar.device or not b.bf16.is_contiguous():
         raise ValueError("prepared B planes must be contiguous on A's device")
-    return _launch("csplit_matmul_tc", "launches_tc", ar, ai,
-                   [b.bf16.data_ptr()], M, N, K)
+    return _launch("tc", ar, ai, [b.bf16.data_ptr()], M, N, K)
 
 
 def _dispatch(ar, ai, planes, prepared):
@@ -242,7 +265,28 @@ def csplit_matmul(ar, ai, brh, brl, bih, bil):
     return _dispatch(ar, ai, (brh, brl, bih, bil), None)
 
 
-csplit_matmul.launches = 0
-csplit_matmul.launches_tc = 0
-csplit_matmul.launches_f32 = 0
 csplit_matmul.cpu_calls = 0
+
+
+def counts() -> dict:
+    """K1's counters: the kernels' launches on every card (read after a
+    synchronise of the card, so that every launch queued has run), in all
+    (``launches``) and per route (``launches_tc``, ``launches_f32``), and
+    ``cpu_calls``."""
+    out = {"launches_" + r: 0 for r in _ROUTES}
+    for index, c in _LAUNCHES.items():
+        torch.cuda.synchronize(index)
+        for r, n in zip(_ROUTES, c.tolist()):
+            out["launches_" + r] += n
+    out["launches"] = sum(out.values())
+    out["cpu_calls"] = csplit_matmul.cpu_calls
+    return out
+
+
+def reset_counts():
+    """Set every counter of :func:`counts` to 0."""
+    for index, c in _LAUNCHES.items():
+        torch.cuda.synchronize(index)
+        c.zero_()
+        torch.cuda.synchronize(index)
+    csplit_matmul.cpu_calls = 0

@@ -84,7 +84,7 @@ def zero_mean_mode(zh: torch.Tensor, owner: bool = True) -> torch.Tensor:
     if not owner:
         return zh
     out = zh.clone()
-    out[..., 0, 0] = 0.0
+    out[..., 0, 0].fill_(0.0)  # no scalar copied from the host
     return out
 
 

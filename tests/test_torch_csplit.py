@@ -81,13 +81,13 @@ def test_wrapper_takes_plain_version_on_host():
     brh, brl = _split_np(br)
     bih, bil = _split_np(bi)
     args = [torch.as_tensor(p) for p in (ar, ai, brh, brl, bih, bil)]
-    launches, calls = (csplit_mm.csplit_matmul.launches,
-                       csplit_mm.csplit_matmul.cpu_calls)
+    c0 = csplit_mm.counts()
     re, im = csplit_mm.csplit_matmul(*args)
     rre, rim = csplit_mm.csplit_matmul_ref(*args)
     assert torch.equal(re, rre) and torch.equal(im, rim)
-    assert csplit_mm.csplit_matmul.launches == launches
-    assert csplit_mm.csplit_matmul.cpu_calls == calls + 1
+    c1 = csplit_mm.counts()
+    assert c1["launches"] == c0["launches"]
+    assert c1["cpu_calls"] == c0["cpu_calls"] + 1
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

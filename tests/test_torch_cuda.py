@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: the CUDA kernels against their
 plain versions (K1, the complex-split matmul; K2, the all-to-all
 transpose, four ranks in this process on ``min(4, device_count)`` cards),
-and the K1 configuration on the card against the host.
+the K1 configuration on the card against the host, and the run path's
+replayed CUDA graphs against the eager per-step loop.
 
 They skip without a CUDA device. This file imports neither JAX nor the JAX
 package, so it runs where JAX is absent; from the repository root::
@@ -59,13 +60,12 @@ EXACT_RTOL = 2e-5
 def test_kernel_matches_plain_version(card, shape):
     M, K, N = shape
     args = _planes(*shape, seed=sum(shape), device=card)
-    count = csplit_mm.csplit_matmul
     route = csplit_mm.route(M, N, K)
-    n, n_route = count.launches, getattr(count, "launches_" + route)
+    c0 = csplit_mm.counts()
     re, im = csplit_mm.csplit_matmul(*args)
-    torch.cuda.synchronize()
-    assert count.launches == n + 1
-    assert getattr(count, "launches_" + route) == n_route + 1
+    c1 = csplit_mm.counts()
+    assert c1["launches"] == c0["launches"] + 1
+    assert c1["launches_" + route] == c0["launches_" + route] + 1
     oracle, rtol = ROUTE_ORACLE[route]
     rre, rim = getattr(csplit_mm, oracle)(*args)
     scale = max(rre.abs().max().item(), rim.abs().max().item())
@@ -97,10 +97,10 @@ def test_kernel_sums_same_sign_terms_two_level(card):
     br = torch.as_tensor(F.real.astype(np.float32), device=card)
     bi = torch.as_tensor(F.imag.astype(np.float32), device=card)
     assert csplit_mm.route(64, K, K) == "tc"
-    n = csplit_mm.csplit_matmul.launches_tc
+    n = csplit_mm.counts()["launches_tc"]
     re, im = csplit_mm.csplit_matmul(a, a, *csplit_mm.mask_split(br),
                                      *csplit_mm.mask_split(bi))
-    assert csplit_mm.csplit_matmul.launches_tc == n + 1
+    assert csplit_mm.counts()["launches_tc"] == n + 1
     exact = K * float(c)
     for plane in (re, im):
         err = (plane[:, 0].double() - exact).abs().max().item() / exact
@@ -115,10 +115,10 @@ def test_refused_launch_raises(card):
     a = torch.zeros((M, 1), dtype=torch.float32, device=card)
     b = torch.zeros((1, 1), dtype=torch.float32, device=card)
     assert csplit_mm.route(M, 1, 1) == "f32"
-    n = csplit_mm.csplit_matmul.launches
+    n = csplit_mm.counts()["launches"]
     with pytest.raises(RuntimeError, match="launch failed"):
         csplit_mm.csplit_matmul(a, a, b, b, b, b)
-    assert csplit_mm.csplit_matmul.launches == n
+    assert csplit_mm.counts()["launches"] == n
     with pytest.raises(ValueError, match="route"):  # tc refuses f32 shapes
         csplit_mm.csplit_matmul_tc(a[:8], a[:8], csplit_mm.prepare_b(b, b, b, b))
     torch.cuda.synchronize()
@@ -138,9 +138,9 @@ def test_k1_transform_matches_cufft(card):
     rng = np.random.default_rng(1)
     z = rng.standard_normal((3, nx, nx)) + 1j * rng.standard_normal((3, nx, nx))
     zt = torch.as_tensor(z, device=card)
-    n = csplit_mm.csplit_matmul.launches
+    n = csplit_mm.counts()["launches"]
     out = tr.fft2(zt.to(torch.complex64))
-    assert csplit_mm.csplit_matmul.launches == n + 6  # 3 fields x 2 passes
+    assert csplit_mm.counts()["launches"] == n + 6  # 3 fields x 2 passes
     exact = ref.fft2(zt)
     # two passes of bf16-rounded operands (x, x_lo, y_lo), f32 sums
     assert ((out.to(torch.complex128) - exact).abs().max()
@@ -166,14 +166,120 @@ def test_flagship_k1_step_matches_host(card):
         return m
 
     g, h = build(None), build("cpu")
-    n = csplit_mm.csplit_matmul.launches
+    n = csplit_mm.counts()["launches"]
     g.run_steps(2)
     h.run_steps(2)
-    assert csplit_mm.csplit_matmul.launches == n + 80
+    assert csplit_mm.counts()["launches"] == n + 80
     for name in ("q", "phi"):
         a, b = getattr(g, name), getattr(h, name)
         assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max(), name
     assert abs(g.Ke - h.Ke) <= 1e-5 * abs(h.Ke)
+
+
+# -- the run path: replayed CUDA graphs of the step -----------------------------
+def _graph_model(name, nx, k1, **kw):
+    """``chip_smoke.flagship`` (the wave models with its packet) or
+    ``chip_smoke.qg_flagship`` at ``nx``: f32 in the K1 configuration
+    where ``k1``, else on cuFFT."""
+    import niwqg_tpu_torch as pkg
+    from chip_smoke import flagship, qg_flagship
+
+    opts = (dict(backend="mxu", precision="split", transform_opts=K1_OPTS)
+            if k1 else dict(backend="native"))
+    if name == "QGModel":
+        return qg_flagship(pkg.QGModel, ic, nx=nx, dtype=np.float32, **opts,
+                           **kw)
+    return flagship(getattr(pkg, name), ic, nx=nx, packet=True,
+                    dtype=np.float32, **opts, **kw)
+
+
+def _same_model(a, b):
+    from niwqg_tpu_torch.graphs import _leaves
+
+    assert a.tc == b.tc
+    for x, y in zip(_leaves(a.state), _leaves(b.state)):
+        assert torch.equal(x, y)
+    da, db = a.diagnostics, b.diagnostics
+    for k in db:
+        np.testing.assert_array_equal(da[k]["value"], db[k]["value"],
+                                      err_msg=k)
+
+
+GRAPH_CASES = ([(n, 64, False) for n in ("CoupledModel", "UnCoupledModel",
+                                         "QLModel", "YBJModel", "QGModel")]
+               + [(n, 256, True) for n in ("CoupledModel", "UnCoupledModel",
+                                           "QLModel", "YBJModel")])
+
+
+@pytest.mark.parametrize("name,nx,k1", GRAPH_CASES)
+def test_graph_run_matches_step_loop(card, name, nx, k1):
+    """``run()`` (tdiags=3, twrite=7 over 17 steps: both graphs, chunks
+    ending at every status line) and ``run_steps`` replay CUDA graphs and
+    equal the eager per-step loop bit for bit: state, every series, sample
+    times. At nx=64 on cuFFT, at nx=256 in the K1 configuration."""
+    kw = dict(tdiags=3, twrite=7, tmax=17 * 157.0)
+    a, b = _graph_model(name, nx, k1, **kw), _graph_model(name, nx, k1, **kw)
+    a.run()
+    while b.tc < 17:
+        b._step_forward()
+    assert a._runner.graphs and a._runner.replays == 17 - 2
+    assert a._diag_acc.fetches == 3  # chunks ending at 7, 14, 17
+    _same_model(a, b)
+    a.run_steps(5)
+    for _ in range(5):
+        b.state = b.kernel.step(b.state)
+    _same_model(a, b)
+
+
+@pytest.mark.parametrize("name", ["CoupledModel", "UnCoupledModel",
+                                  "QLModel", "YBJModel"])
+def test_k1_launches_per_replayed_step(card, name):
+    """K1's counts under replay, which the kernels make on the card: a
+    replay of graph A or B launches as many as the eager step of its kind,
+    the counts that chip_smoke.py pins (a diagnostics sample of the coupled
+    model adds K1_PER_DIAG), all on the tensor-core route; the capture
+    counts nothing."""
+    from chip_smoke import K1_PER_DIAG, K1_PER_STEP, K1_PER_STEP_FAMILY
+
+    per_step = K1_PER_STEP_FAMILY.get(name, K1_PER_STEP)
+    m = _graph_model(name, 256, True, tdiags=1, twrite=1000,
+                     tmax=6 * 157.0)
+
+    def launches(fn):
+        c0 = csplit_mm.counts()
+        fn()
+        c1 = csplit_mm.counts()
+        d = {k: c1[k] - c0[k] for k in c1}
+        assert d["launches"] == d["launches_tc"] and d["cpu_calls"] == 0
+        return d["launches"]
+
+    # one eager step, the capture of A, three replays
+    assert launches(lambda: m.run_steps(4)) == 4 * per_step
+    replays = m._runner.replays
+    assert launches(lambda: m.run_steps(1)) == per_step  # a replay of A
+    # a sample at step 5 of 6: one eager step and the capture of B
+    per_diag = launches(m.run)
+    assert launches(lambda: m._runner.advance(1)) == per_diag  # replay of B
+    assert m._runner.replays == replays + 2
+    if name == "CoupledModel":
+        assert per_diag == per_step + K1_PER_DIAG
+
+
+def test_run_steps_state_survives_later_replays(card):
+    """The state ``run_steps`` returns is fresh tensors: later replays,
+    which write the static buffers in place, leave it as it was."""
+    from niwqg_tpu_torch.graphs import _leaves
+
+    m = _graph_model("CoupledModel", 64, False)
+    m.run_steps(3)  # captured
+    s = m.run_steps(2)
+    kept = [x.clone() for x in _leaves(s)]
+    m.run_steps(4)
+    torch.cuda.synchronize()
+    for x, y in zip(_leaves(s), kept):
+        assert torch.equal(x, y)
+    static = {x.data_ptr() for x in _leaves(m._runner._static)}
+    assert not static & {x.data_ptr() for x in _leaves(m.state)}
 
 
 # -- K2: the all-to-all transpose ---------------------------------------------

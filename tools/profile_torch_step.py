@@ -19,15 +19,28 @@ Builds the flagship coupled model (``chip_smoke.flagship``) at
   qg      ``QGModel`` with its passive scalar (``chip_smoke.qg_flagship``),
           f32 on cuFFT.
 
+Each configuration runs in one or both ``--forms``:
+
+  eager   a loop of ``kernel.step`` from Python, every operation launched
+          from the host (the per-step path);
+  graph   ``run_steps``: on one card, replays of the step's CUDA graph
+          (``niwqg_tpu_torch/graphs.py``); the sharded configuration has
+          no graph form (a mesh calls the step directly).
+
 For each it times ``--steps`` steps with the host clock (closed by a
 synchronise, on a mesh also by a barrier), then profiles ``--steps`` more
 with ``torch.profiler`` and prints the device time per step grouped by
 kernel family (the K1 kernel, the K2 kernel, cuBLAS/CUTLASS GEMMs, FFTs,
 NCCL, the rest) with the device's idle share, and the top kernels. A
-Chrome trace per configuration goes to ``--out``.
+Chrome trace per configuration and form goes to ``--out``.
 
     python3 tools/profile_torch_step.py --nx 2048 --out output_profile
-    python3 tools/profile_torch_step.py --configs sharded
+    python3 tools/profile_torch_step.py --configs cufft,qg,k1 --forms eager,graph
+    python3 tools/profile_torch_step.py --configs sharded --forms eager
+
+``--root DIR`` imports ``niwqg_tpu_torch`` from another checkout (one
+unpacked with ``git archive``, say the parent commit), so that one call
+can time the eager step of two trees in turns.
 """
 
 from __future__ import annotations
@@ -80,9 +93,19 @@ def family(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def profile(name, nx, steps, out_dir, mesh=None):
-    """Time and profile ``steps`` steps of one configuration; on a mesh
-    every rank steps and rank 0 alone is profiled and reports."""
+def advance(m, form, n):
+    """``n`` steps of model ``m`` in one form (see the module docstring)."""
+    if form == "graph":
+        m.run_steps(n)
+        return
+    for _ in range(n):
+        m.state = m.kernel.step(m.state)
+
+
+def profile(name, nx, steps, out_dir, mesh=None, forms=("eager",)):
+    """Time and profile ``steps`` steps of one configuration in each form;
+    on a mesh every rank steps and rank 0 alone is profiled and reports.
+    Returns the model and rank 0's results, one per form."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -95,34 +118,41 @@ def profile(name, nx, steps, out_dir, mesh=None):
         kw["mesh"] = mesh
     build = qg_flagship if model == "QGModel" else flagship
     m = build(getattr(pkg, model), ic, nx=nx, dtype=np.float32, **kw)
-    m.run_steps(2)
 
     def sync():
         torch.cuda.synchronize()
         if mesh is not None:
             mesh.barrier()
 
-    sync()
-    t0 = time.perf_counter()
-    m.run_steps(steps)
-    sync()
-    wall = (time.perf_counter() - t0) / steps
-    rank0 = mesh is None or mesh.rank == 0
-    if not rank0:
-        m.run_steps(steps)
+    out = []
+    for form in forms:
+        if form == "graph" and (mesh is not None or not getattr(
+                getattr(m, "_runner", None), "graphs", False)):
+            raise ValueError(f"{name}: no graph form here (a mesh, or a "
+                             "tree without niwqg_tpu_torch/graphs.py)")
+        advance(m, form, 2)  # warm-up (the graph form captures)
         sync()
-        return m, None
-
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA],
-                                acc_events=True) as prof:
         t0 = time.perf_counter()
-        m.run_steps(steps)
+        advance(m, form, steps)
         sync()
-        wall_prof = (time.perf_counter() - t0) / steps
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
-    return m, summarize(prof, name, nx, steps, wall, wall_prof)
+        wall = (time.perf_counter() - t0) / steps
+        if not (mesh is None or mesh.rank == 0):
+            advance(m, form, steps)
+            sync()
+            continue
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA],
+                                    acc_events=True) as prof:
+            t0 = time.perf_counter()
+            advance(m, form, steps)
+            sync()
+            wall_prof = (time.perf_counter() - t0) / steps
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir,
+                                              f"trace_{name}_{form}.json"))
+        out.append(summarize(prof, f"{name} ({form})", nx, steps, wall,
+                             wall_prof))
+    return m, out
 
 
 def summarize(prof, name, nx, steps, wall, wall_prof):
@@ -170,7 +200,8 @@ def _sharded_rank(rank, port, nx, steps, out_dir, result):
     mesh = multihost.global_mesh()
     torch.cuda.set_device(mesh.device)
     m, res = profile("sharded", nx, steps, out_dir, mesh)
-    if res is not None:
+    if res:
+        res = res[0]
         res["ranks"] = NRANKS
         res["backend"] = str(torch.distributed.get_backend())
         with open(result, "w") as fh:
@@ -202,8 +233,16 @@ def main() -> int:
     ap.add_argument("--nx", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--configs", default="k1,cufft")
+    ap.add_argument("--forms", default="eager,graph",
+                    help="eager, graph or both (the sharded configuration "
+                         "takes eager only)")
+    ap.add_argument("--root", default=None,
+                    help="import niwqg_tpu_torch from this checkout")
     ap.add_argument("--out", default=os.path.join(ROOT, "output_profile"))
     args = ap.parse_args()
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
+    forms = tuple(args.forms.split(","))
 
     import torch
 
@@ -215,10 +254,16 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], check=True,
                           capture_output=True, text=True).stdout.strip()
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    res = [profile_sharded(args.nx, args.steps, args.out) if c == "sharded"
-           else profile(c, args.nx, args.steps, args.out)[1]
-           for c in args.configs.split(",")]
+    import niwqg_tpu_torch
+
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}"
+          f"; package {os.path.dirname(niwqg_tpu_torch.__file__)}")
+    res = []
+    for c in args.configs.split(","):
+        if c == "sharded":
+            res.append(profile_sharded(args.nx, args.steps, args.out))
+        else:
+            res += profile(c, args.nx, args.steps, args.out, forms=forms)[1]
     print(json.dumps({"card": card, "results": res}))
     return 0
 
