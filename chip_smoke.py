@@ -13,11 +13,13 @@ Phases (any failure exits non-zero):
   3. the complex-split matmul (K1), each of its two kernels against the
      plain PyTorch version of its route: the tensor-core kernel against
      the bf16-operand plain version and the complex128 product at the main
-     path's shape (2048x2048 @ 2048x2048, the DFT matrix as B) and a ragged
-     one, the f32-FMA kernel against the f32 plain version at a shape that
-     takes that route, and a sum of 2048 equal terms (the mean mode); then
-     the times at 2048³ of both kernels, both plain versions and one
-     library call (complex64 ``torch.matmul``), with two bounds: the
+     path's shape (2048x2048 @ 2048x2048, the DFT matrix as B), at the
+     even/odd configuration's half-length DFT (2048x1024 @ 1024x1024,
+     phase 11c) and a ragged one, the f32-FMA kernel against the f32 plain
+     version at a shape that takes that route, and a sum of 2048 equal
+     terms (the mean mode); then the times at 2048³ and at 2048x1024x1024
+     of both kernels, both plain versions and one library call (complex64
+     ``torch.matmul``), with two bounds: the
      twelve split products on the bf16 tensor cores (24*M*N*K flop, the
      ``bound_ms`` of the result line) and one complex product on f32 FMAs
      (8*M*N*K flop);
@@ -105,13 +107,30 @@ Phases (any failure exits non-zero):
      (``_step_forward``, ``kernel.step``) bit for bit (1e-6 where not);
      K1's launches in every run against the eager loop's, and in one
      replay of each graph against the pins; diagnostics fetches per chunk,
-     steps/s with graphs and eagerly, capture ms and peak memory.
+     steps/s with graphs and eagerly, capture ms and peak memory;
+ 11. the matmul-DFT's options at 2048², each model built with K1's counts
+     set to 0 and held after 2 steps to its f64 cuFFT run of phases 5 and
+     8 (1e-4 on q, phi/c, Ke): (a) JAX's defaults (``MXU_MODEL``: dotgen,
+     a (128, 16) four-step, even/odd over a (128, 8) one, Gauss, 'high'
+     = one float32 GEMM with TF32 off, ``max_batch=1``) on all five
+     models, the options as resolved printed and checked, no K1 launch,
+     the Coupled model also through phase 10's check; (b) the mirror-free
+     real path forced on the Coupled model; (c) the even/odd K1
+     configuration (``K1_EVENODD_MODEL``) on Coupled and QG + scalar,
+     ``K1_PER_STEP_EVENODD`` launches a step, all on the tensor-core
+     route; steps/s of each over 3 timed steps; then (d) a table of the
+     routes at 2048 (``transform_table``): dense and four-step passes,
+     each real path, Gauss on and off, each precision mode, the K1
+     configurations and cuFFT, with round-trip ms and the error against
+     complex128 ``torch.fft``.
 
 On one card every ``run_steps``, ``run`` and ``run_with_snapshots``
 above replays the step's CUDA graphs (``niwqg_tpu_torch/graphs.py``).
 K1's kernels count their own launches on the card, so a replayed launch
 counts as any other (``csplit_mm.counts``). K1's ``launches`` in the
-result line counts phases 4, 8 and 9, each with its graph runs.
+result line counts phases 4, 8, 9 and 11, each with its graph runs. The
+ETDRK4 tables' disk cache lives in a directory of the run's own, removed
+at its end, so models of one physics share their tables.
 
 The line before the last holds the card's name and power limit; the one
 before it the kernels' JSON record; the last line is
@@ -202,6 +221,23 @@ GRAPH_LABEL = {"CoupledModel": "CoupledModel, K1 configuration",
 K1_MODEL = dict(backend="mxu", dtype=np.float32, precision="split",
                 transform_opts=K1_TRANSFORM)
 WAVE_FIELDS = ("q", "phi", "Ke")
+# phase 11: the matmul-DFT with JAX's defaults (no precision, no
+# transform_opts: dotgen, a (128, 16) four-step, even/odd over a (128, 8)
+# half-length four-step, Gauss, 'high', max_batch=1), which sends K1
+# nothing; and the even/odd K1 configuration, whose dense x-passes
+# (2048, 2048, 2048) and half-length DFTs (2048, 1024, 1024) go to K1
+MXU_MODEL = dict(backend="mxu", dtype=np.float32)
+MXU_RESOLVED = dict(formulation="dotgen", factors=(128, 16),
+                    half_factors=(128, 8), realpath="evenodd", gauss=True,
+                    precision="high", max_batch=1, use_pallas=False)
+K1_EVENODD = dict(use_pallas=True, formulation="dotgen", factors=None,
+                  half_factors=None, evenodd=True)
+K1_EVENODD_MODEL = dict(backend="mxu", dtype=np.float32, precision="split",
+                        transform_opts=K1_EVENODD)
+# K1 launches per step in the even/odd K1 configuration; QG's with its
+# passive scalar; tests/test_torch_fft_options.py holds them to JAX's trace
+K1_PER_STEP_EVENODD = {"CoupledModel": 52, "QGModel": 35}
+TABLE_REPS = 5  # phase 11(d): round trips timed per configuration
 
 
 def log(*args):
@@ -319,35 +355,46 @@ def timed_steps(torch, m, fields):
     return state, time.perf_counter() - t0
 
 
+def cross(name, a, b, keys, shown=()):
+    """Hold ``keys`` of the f32 run ``a`` to the f64 cuFFT run ``b`` at
+    CROSS_RTOL; print ``shown`` beside them."""
+    d = {}
+    for k in keys + shown:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        d[k] = float(np.abs(x - y).max() / np.abs(y).max())
+    log(f"{name} f32 vs f64 cuFFT after {WARM_STEPS} steps: "
+        + ", ".join(f"{k} {d[k]:.3e}" for k in keys)
+        + f" (relative; limit {CROSS_RTOL})"
+        + "".join(f"; {k} {d[k]:.3e}" for k in shown))
+    check(max(d[k] for k in keys) <= CROSS_RTOL,
+          f"{name}: the f32 run disagrees with the f64 cuFFT run")
+
+
+def model_fields(name):
+    """(held, shown) fields of a model against its f64 run: YBJ holds phi
+    (its q is frozen, it integrates no budgets), QG q, c, Ke and cvar, the
+    other wave models q, phi and Ke with Pw and Kw shown beside them (with
+    K1's bf16 rounding Pw ends step 1 about 2.5e-4 off its f64 run at
+    2048²: tools/probe_wave_budgets.py, PERF.md)."""
+    if name == "YBJModel":
+        return ("phi",), ()
+    if name == "QGModel":
+        return ("q", "c", "Ke", "cvar"), ()
+    return WAVE_FIELDS, ("Pw", "Kw")
+
+
 def family_phase(torch, mm):
     """Phase 8: UnCoupled, QL and YBJ in the K1 configuration, QG (+scalar)
     in f32 on cuFFT, each against its f64 cuFFT run and held by phase 10's
-    ``graph_check``. Returns the K1 launches of the three wave models."""
+    ``graph_check``. Returns the K1 launches of the three wave models, and
+    the f64 runs' fields after WARM_STEPS steps by model."""
     import niwqg_tpu_torch as pkg
     from niwqg_tpu_torch import InitialConditions as ic
 
-    def cross(name, a, b, keys, shown=()):
-        """Hold ``keys`` at CROSS_RTOL; print ``shown`` beside them."""
-        d = {}
-        for k in keys + shown:
-            x, y = np.asarray(a[k]), np.asarray(b[k])
-            d[k] = float(np.abs(x - y).max() / np.abs(y).max())
-        log(f"{name} f32 vs f64 cuFFT after {WARM_STEPS} steps: "
-            + ", ".join(f"{k} {d[k]:.3e}" for k in keys)
-            + f" (relative; limit {CROSS_RTOL})"
-            + "".join(f"; {k} {d[k]:.3e}" for k in shown))
-        check(max(d[k] for k in keys) <= CROSS_RTOL,
-              f"{name}: the f32 run disagrees with the f64 cuFFT run")
-
-    launches = 0
+    launches, refs = 0, {}
     for name, per_step in K1_PER_STEP_FAMILY.items():
         mod = getattr(pkg, name)
-        fields = ("phi",) if name == "YBJModel" else ("q", "phi", "Ke")
-        # the wave budgets are shown, not held: with K1's bf16 rounding Pw
-        # ends step 1 about 2.5e-4 off its f64 run at 2048², in the
-        # Coupled model too (tools/probe_wave_budgets.py, PERF.md). YBJ
-        # integrates no budgets.
-        shown = () if name == "YBJModel" else ("Pw", "Kw")
+        fields, shown = model_fields(name)
         torch.cuda.reset_peak_memory_stats()
         mm.reset_counts()
         t0 = time.perf_counter()
@@ -387,12 +434,12 @@ def family_phase(torch, mm):
         m64 = flagship(mod, ic, packet=True, backend="native",
                        dtype=np.float64)
         m64.run_steps(WARM_STEPS)
-        cross(name, s32, {k: getattr(m64, k) for k in fields + shown},
-              fields, shown)
+        refs[name] = {k: getattr(m64, k) for k in fields + shown}
+        cross(name, s32, refs[name], fields, shown)
         del m64
         torch.cuda.empty_cache()
 
-    qg_fields = ("q", "c", "Ke", "cvar")
+    qg_fields = model_fields("QGModel")[0]
     torch.cuda.reset_peak_memory_stats()
     mm.reset_counts()
     t0 = time.perf_counter()
@@ -415,10 +462,11 @@ def family_phase(torch, mm):
     torch.cuda.empty_cache()
     m64 = qg_flagship(pkg.QGModel, ic, backend="native", dtype=np.float64)
     m64.run_steps(WARM_STEPS)
-    cross("QGModel", s32, {k: getattr(m64, k) for k in qg_fields}, qg_fields)
+    refs["QGModel"] = {k: getattr(m64, k) for k in qg_fields}
+    cross("QGModel", s32, refs["QGModel"], qg_fields)
     del m64
     torch.cuda.empty_cache()
-    return launches
+    return launches, refs
 
 
 def io_phase(torch, mm, main_sps):
@@ -1228,7 +1276,7 @@ def graph_check(torch, mm, label, m, per_step, fields):
     launches = sum(n_launch) + sum(per_replay)
     if per_step is None:
         check(launches == 0, f"phase 10, {label}: K1 was called")
-        k1 = "none (cuFFT)"
+        k1 = "none"
     else:
         per_a, per_b = per_replay
         if label == GRAPH_LABEL["CoupledModel"]:
@@ -1267,6 +1315,160 @@ def graph_check(torch, mm, label, m, per_step, fields):
     check(all(np.isfinite(np.asarray(getattr(m, k))).all()
               for k in fields), f"phase 10, {label}: non-finite state")
     return launches
+
+
+def resolved_options(tr):
+    """The options a ``MatmulTransform`` resolved, as MXU_RESOLVED lists
+    them."""
+    half = tr._cdft_half.factors if tr._cdft_half is not None else None
+    return dict(formulation=tr.formulation, factors=tr.factors,
+                half_factors=half, realpath=tr.realpath, gauss=tr.gauss,
+                precision=tr.precision, max_batch=tr.max_batch,
+                use_pallas=tr.use_pallas)
+
+
+def mxu_phase(torch, mm, refs64):
+    """Phase 11: the matmul-DFT's options at 2048². (a) JAX's defaults
+    (``MXU_MODEL``) on all five models, (b) ``realpath='mf'`` on the
+    Coupled model, (c) the even/odd K1 configuration on Coupled and QG +
+    scalar: each built with K1's counts set to 0, WARM_STEPS + TIMED_STEPS
+    steps (steps/s, K1 launches per step: none in (a) and (b), the pins
+    of ``K1_PER_STEP_EVENODD`` in (c), all tensor-core), held after
+    WARM_STEPS steps to its f64 cuFFT run (``refs64`` by model, from
+    phases 5 and 8; made here where missing); (a)'s Coupled model through
+    ``graph_check`` (its replayed ``run_steps`` bitwise the eager loop);
+    then (d), ``transform_table``. Returns K1's launches in the phase."""
+    import niwqg_tpu_torch as pkg
+    from niwqg_tpu_torch import InitialConditions as ic
+
+    def build(name, **kw):
+        if name == "QGModel":
+            return qg_flagship(pkg.QGModel, ic, **kw)
+        return flagship(getattr(pkg, name), ic,
+                        packet=name != "CoupledModel", **kw)
+
+    names = ("CoupledModel", "UnCoupledModel", "QLModel", "YBJModel",
+             "QGModel")
+    runs = [("(a) JAX's defaults", name, MXU_MODEL, 0) for name in names]
+    runs.append(("(b) realpath='mf'", "CoupledModel",
+                 dict(MXU_MODEL, transform_opts={"realpath": "mf"}), 0))
+    runs += [("(c) even/odd K1 configuration", name, K1_EVENODD_MODEL,
+              K1_PER_STEP_EVENODD[name]) for name in ("CoupledModel",
+                                                      "QGModel")]
+    launches = 0
+    for label, name, kw, per_step in runs:
+        held, shown = model_fields(name)
+        if name not in refs64:
+            m64 = build(name, backend="native", dtype=np.float64)
+            m64.run_steps(WARM_STEPS)
+            refs64[name] = {k: getattr(m64, k) for k in held + shown}
+            del m64
+        graphs = label.startswith("(a)") and name == "CoupledModel"
+        torch.cuda.empty_cache()
+        mm.reset_counts()
+        t0 = time.perf_counter()
+        m = build(name, **kw, **(GRAPH_RUN if graphs else {}))
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        n_set = mm.counts()["launches"]
+        s32, wall = timed_steps(torch, m, held + shown)
+        count = mm.counts()
+        n_steps = count["launches"] - n_set
+        launches += count["launches"]
+        opts = resolved_options(m.kernel.tr)
+        log(f"phase 11 {label}, {name}: built and initialised in "
+            f"{t_build:.1f} s; {TIMED_STEPS} steps in {wall:.3f} s = "
+            f"{TIMED_STEPS / wall:.3f} steps/s ({1e3 * wall / TIMED_STEPS:.1f}"
+            f" ms/step); K1 launches: set_q/set_phi {n_set}, steps {n_steps} "
+            f"({n_steps / (WARM_STEPS + TIMED_STEPS):.1f}/step, "
+            f"{per_step} expected), {count['launches_tc']} on the "
+            f"tensor-core route; transform {opts}")
+        check(count["cpu_calls"] == 0, f"phase 11, {name}: K1 ran its plain "
+              "version")
+        check(n_steps == per_step * (WARM_STEPS + TIMED_STEPS),
+              f"phase 11 {label}, {name}: expected {per_step} K1 launches "
+              "per step")
+        check(count["launches_tc"] == count["launches"]
+              and count["launches_f32"] == 0,
+              f"phase 11 {label}, {name}: K1 launches off the tensor-core "
+              "route")
+        if label.startswith("(a)"):
+            check(opts == MXU_RESOLVED, f"phase 11 (a): the defaults "
+                  f"resolved to {opts}, not {MXU_RESOLVED}")
+        if label.startswith("(b)"):
+            check(opts["realpath"] == "mf", "phase 11 (b): not mirror-free")
+        check(all(np.isfinite(np.asarray(getattr(m, k))).all()
+                  for k in held), f"phase 11, {name}: non-finite state")
+        cross(f"phase 11 {label}, {name}", s32, refs64[name], held, shown)
+        if graphs:
+            launches += graph_check(
+                torch, mm, "CoupledModel, matmul-DFT with JAX's defaults", m,
+                None, WAVE_FIELDS)
+        del m
+    torch.cuda.empty_cache()
+    transform_table(torch)
+    return launches
+
+
+def transform_table(torch):
+    """Phase 11(d): the matmul-DFT's routes at 2048, one field. For the
+    dense and the four-step passes, each real path, Gauss on and off and
+    each precision mode: the forward transform's error against complex128
+    ``torch.fft`` on the card (relative to its largest magnitude) and the
+    ``fft2``+``ifft2`` and ``rfft2``+``irfft2`` round trips' device ms
+    (CUDA events, TABLE_REPS back to back; the complex round trip does not
+    depend on the real path and is timed with the dense one); then the
+    K1 configurations of phases 4 and 11(c) and cuFFT in f32."""
+    import itertools
+    import warnings
+
+    from niwqg_tpu_torch.ops.fft import MatmulTransform, NativeTransform
+
+    rng = np.random.default_rng(11)
+    x = torch.as_tensor(rng.standard_normal((NX, NX)), device="cuda")
+    z = torch.complex(x, torch.as_tensor(rng.standard_normal((NX, NX)),
+                                         device="cuda"))
+    want_c, want_r = torch.fft.fft2(z), torch.fft.rfft2(x)
+    z32, x32 = z.to(torch.complex64), x.float()
+
+    def rel(a, b):
+        return float((a.to(b.dtype) - b).abs().max() / b.abs().max())
+
+    def row(name, tr, complex_too=True):
+        err_r = rel(tr.rfft2(x32), want_r)
+        ms_r = cuda_ms(torch, lambda: tr.irfft2(tr.rfft2(x32)), TABLE_REPS)
+        out = (f"rfft2 err {err_r:.3e}, rfft2+irfft2 {ms_r:.3f} ms")
+        if complex_too:
+            err_c = rel(tr.fft2(z32), want_c)
+            ms_c = cuda_ms(torch, lambda: tr.ifft2(tr.fft2(z32)), TABLE_REPS)
+            out = (f"fft2 err {err_c:.3e}, fft2+ifft2 {ms_c:.3f} ms; " + out)
+        log(f"  {name}: {out}")
+
+    log(f"phase 11 (d) transform table at {NX} (one field, f32; errors "
+        "against complex128 torch.fft on the card; card "
+        f"{smi_name_power()}):")
+    for steps, realpath, gauss, precision in itertools.product(
+            ("dense", "four-step"), ("dense", "evenodd", "mf"),
+            (False, True), ("split", "split3", "high", "fast")):
+        if realpath == "mf" and steps == "dense":
+            continue  # the mirror-free path is a four-step one
+        opts = (dict(factors=None, half_factors=None) if steps == "dense"
+                else {})
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # 'fast' warns
+            tr = MatmulTransform(NX, np.float32, precision=precision,
+                                 gauss=gauss, realpath=realpath, **opts)
+        row(f"{steps} passes, realpath={realpath}, "
+            f"gauss={'on' if gauss else 'off'}, {precision} "
+            f"(factors {tr.factors}, half "
+            f"{tr._cdft_half.factors if tr._cdft_half else None})", tr,
+            complex_too=realpath == "dense")
+        del tr
+    for name, kw in (("K1 configuration (phase 4)", K1_TRANSFORM),
+                     ("even/odd K1 configuration (11c)", K1_EVENODD)):
+        row(name, MatmulTransform(NX, np.float32, precision="split", **kw))
+    row("cuFFT f32 (NativeTransform)", NativeTransform(NX, np.float32))
+    torch.cuda.empty_cache()
 
 
 def has_h5py() -> bool:
@@ -1522,13 +1724,13 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11",
                     help="phases to run beyond the card report and the "
                          "build (default: all; a partial run is for "
                          "debugging and prints no result lines)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",") if x}
-    full = phases >= {3, 4, 5, 6, 7, 8, 9, 10}
+    full = phases >= {3, 4, 5, 6, 7, 8, 9, 10, 11}
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1538,9 +1740,20 @@ def main(argv=None) -> int:
               "(niwqg_tpu_torch/ not found)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    # no disk cache of the ETDRK4 tables: write nothing outside the build
-    os.environ.setdefault("NIWQG_TORCH_TABLE_CACHE", "0")
+    # the ETDRK4 tables' disk cache in a directory of this run's own,
+    # removed at the end: models of one physics share their tables (the
+    # f32 and f64 runs, phases 8 and 11), and nothing is written elsewhere
+    table_cache = tempfile.mkdtemp(prefix="niwqg_tables_")
+    os.environ["NIWQG_TORCH_TABLE_CACHE"] = table_cache
+    try:
+        return run_phases(torch, phases, full)
+    finally:
+        shutil.rmtree(table_cache, ignore_errors=True)
 
+
+def run_phases(torch, phases, full) -> int:
+    """The phases of ``main``, after its checks of the card and the
+    checkout."""
     from niwqg_tpu_torch import CoupledModel
     from niwqg_tpu_torch import InitialConditions as ic
     from niwqg_tpu_torch import cuda_build
@@ -1591,12 +1804,16 @@ def main(argv=None) -> int:
         io_phase(torch, mm, None)
     if 10 in phases and not full:
         graph_phase(torch, mm)
+    if 11 in phases and not full:
+        mxu_phase(torch, mm, {})
     if not full:
         log("partial run: no result lines")
         return 0
 
     # -- 3. K1 against its plain version -------------------------------------
     rec = k1_record(torch, mm, NX, NX, NX, seed=1, dft=True, reps=10)
+    # the even/odd configuration's half-length DFT (phase 11c)
+    k1_record(torch, mm, NX, NX // 2, NX // 2, seed=4, dft=True, reps=10)
     k1_record(torch, mm, 520, 384, 264, seed=2, dft=False, reps=0)  # ragged
     k1_record(torch, mm, 130, 17, 65, seed=3, dft=False, reps=0)  # f32 route
     k1_mean_mode(torch, mm)
@@ -1666,6 +1883,8 @@ def main(argv=None) -> int:
     check(max(dq, dphi, dke) <= CROSS_RTOL,
           "f32 K1 run disagrees with the f64 cuFFT run")
     refs["one-card f64 cuFFT"] = (q64, phi64, ke64)
+    refs64 = {"CoupledModel": {"q": q64, "phi": phi64, "Ke": ke64,
+                               "Pw": m64.Pw, "Kw": m64.Kw}}
     del m64
     torch.cuda.empty_cache()
 
@@ -1718,12 +1937,18 @@ def main(argv=None) -> int:
     lap("7")
 
     # -- 8. the model family ------------------------------------------------------
-    rec["launches"] += family_phase(torch, mm)
+    n, frefs64 = family_phase(torch, mm)
+    rec["launches"] += n
+    refs64.update(frefs64)
     lap("8")
 
     # -- 9. output, run_with_snapshots and a checkpoint -----------------------
     rec["launches"] += io_phase(torch, mm, main_sps)
     lap("9")
+
+    # -- 11. the matmul-DFT's options ---------------------------------------
+    rec["launches"] += mxu_phase(torch, mm, refs64)
+    lap("11")
 
     order = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")
@@ -1739,7 +1964,7 @@ def main(argv=None) -> int:
     log(f"the sharded phases ran {NRANKS} ranks on {ncards} card(s)"
         + ("" if ncards == NRANKS else ": their times were taken with "
            "ranks sharing a card and are not multi-card times"))
-    log("wall time by phase (4, 5 and 8 with their phase-10 checks): "
+    log("wall time by phase (4, 5, 8 and 11 with their phase-10 checks): "
         + ", ".join(laps))
     print(json.dumps({"kernels": kernels}))
     print(smi_name_power())

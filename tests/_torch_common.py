@@ -1,7 +1,8 @@
 """Shared by the test files that hold the PyTorch port's models against
 the JAX package: the K1 configuration's transform options, the relative
-difference they are held to, the flagship's physics, and a JAX wave state
-rebuilt from the port's numpy state."""
+difference they are held to, the flagship's physics, a JAX wave state
+rebuilt from the port's numpy state, and the matmul-DFT's K1
+configurations with a recorder of K1's calls in both packages."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -52,3 +53,41 @@ def jax_wave_state(d):
         d=jkernel.Derived(**{k: leaf(v) for k, v in d["d"].items()}),
         Ke=jnp.asarray(d["Ke"]), Pw=jnp.asarray(d["Pw"]),
         Kw=jnp.asarray(d["Kw"]))
+
+
+# K1's configurations of the matmul-DFT at nx=512 in f32 ('split',
+# use_pallas): JAX's dotgen default with dense passes, then with the
+# even/odd real path over a dense half-length DFT (K = N = nx/2), dotgen
+# and swap
+K1_CONFIGS = {
+    "dotgen-dense": dict(formulation="dotgen", factors=None,
+                         half_factors=None),
+    "dotgen-evenodd": dict(formulation="dotgen", factors=None,
+                           half_factors=None, evenodd=True),
+    "swap-evenodd": dict(formulation="swap", factors=None,
+                         half_factors=None, evenodd=True),
+}
+K1_NX = 512
+
+
+def record_k1_calls(monkeypatch):
+    """Record the shapes (rows, K) of JAX's traced Pallas calls and of the
+    port's K1 calls while a test runs; returns the two lists."""
+    from niwqg_tpu.ops import pallas_mm
+    from niwqg_tpu_torch.ops import fft as tfft
+
+    jax_calls, port_calls = [], []
+    jorig = pallas_mm.csplit_matmul
+    torig = tfft.csplit_matmul_prepared
+
+    def jcount(*a, **k):
+        jax_calls.append(tuple(a[0].shape))
+        return jorig(*a, **k)
+
+    def tcount(ar, ai, b):
+        port_calls.append(tuple(ar.shape))
+        return torig(ar, ai, b)
+
+    monkeypatch.setattr(pallas_mm, "csplit_matmul", jcount)
+    monkeypatch.setattr(tfft, "csplit_matmul_prepared", tcount)
+    return jax_calls, port_calls

@@ -211,17 +211,18 @@ def test_route_functions_refuse_host_planes():
 
 
 def test_transform_prepares_its_constants_once():
-    """The K1 configuration converts _F and _G when it is built and hands
-    the prepared planes to the wrapper; the plain configuration prepares
-    nothing."""
+    """The K1 configuration converts its DFT's _F and _G when it is built
+    and hands the prepared planes to the wrapper; the plain configuration
+    prepares nothing."""
     from niwqg_tpu_torch.ops.fft import MatmulTransform
 
     opts = dict(formulation="swap", factors=None, half_factors=None)
     tr = MatmulTransform(256, np.float32, precision="split", device="cpu",
                          use_pallas=True, **opts)
-    assert set(tr._prepared) == {id(tr._F), id(tr._G)}
-    b = tr._prepared[id(tr._F)]
-    assert b.planes == tr._F[0] + tr._F[1]
+    F, G = tr._cdft._F, tr._cdft._G
+    assert set(tr._prepared) == {id(F), id(G)}
+    b = tr._prepared[id(F)]
+    assert b.planes == F[0] + F[1]
     plain = MatmulTransform(256, np.float32, precision="split", device="cpu",
                             use_pallas=False, gauss=False, **opts)
     assert plain._prepared == {}

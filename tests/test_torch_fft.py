@@ -106,23 +106,6 @@ def test_real_field_transforms_f64(backend):
     assert _rel(y, np.real(np.fft.ifft2(zh))) < 1e-12
 
 
-@pytest.mark.parametrize("opts", [
-    dict(precision="split", formulation="dotgen", factors=None,
-         half_factors=None),
-    dict(precision="split", formulation="swap", half_factors=None),
-    dict(precision="high", formulation="swap", factors=None,
-         half_factors=None),
-    dict(precision="split3", formulation="swap", factors=None,
-         half_factors=None),
-    dict(precision="split", formulation="swap", factors=None),
-    dict(precision="split", formulation="swap", factors=None,
-         half_factors=None, use_pallas=False),
-])
-def test_unported_matmul_options_raise(opts):
-    with pytest.raises(NotImplementedError):
-        tfft.MatmulTransform(2048, np.float32, device="cpu", **opts)
-
-
 def test_backend_selection():
     assert isinstance(tfft.make_transform(16, np.float64, "auto"),
                       tfft.NativeTransform)

@@ -2,9 +2,10 @@
 """How far a wave model's f32 runs part from its f64 run, field by field.
 
 Builds one wave model of the PyTorch port with the flagship's physics and
-a wave packet in phi (``chip_smoke.flagship(packet=True)``) three ways:
+a wave packet in phi (``chip_smoke.flagship(packet=True)``) four ways:
 f32 in the K1 configuration (``chip_smoke.py`` phase 8), f32 on the
-native FFT, and f64 on the native FFT. Prints the relative difference of
+matmul-DFT with the JAX package's defaults (phase 11a: one f32 GEMM a
+real product, no K1), f32 on the native FFT, and f64 on the native FFT. Prints the relative difference of
 q, phi, Ke, Pw and Kw of each f32 run against the f64 run after
 ``set_q``/``set_phi`` and after each of ``--steps`` steps (fields: largest
 difference over the largest magnitude).
@@ -64,6 +65,7 @@ def main(argv=None) -> int:
     physics = {} if args.nu4w is None else {"nu4w": args.nu4w}
     runs = {"f32 K1": dict(dtype=np.float32, backend="mxu", precision="split",
                            transform_opts=K1_TRANSFORM),
+            "f32 matmul-DFT defaults": dict(dtype=np.float32, backend="mxu"),
             "f32 native": dict(dtype=np.float32, backend="native"),
             "f64 native": dict(dtype=np.float64, backend="native")}
     states = {}

@@ -6,6 +6,12 @@ Builds the flagship coupled model (``chip_smoke.flagship``) at
 
   k1      the matmul-DFT with the hand-written complex-split kernel (f32,
           'split' precision, dense swap formulation) — the slice's main path;
+  mxu     the matmul-DFT with the JAX package's defaults (no precision, no
+          transform options: dotgen, four-step, even/odd, Gauss, 'high';
+          ``chip_smoke.py`` phase 11a), which sends K1 nothing;
+  k1eo    the even/odd K1 configuration (``chip_smoke.K1_EVENODD``, 'split'
+          precision; phase 11c): K1 takes the dense x-passes and the
+          half-length DFTs;
   cufft   the same model on ``torch.fft`` (cuFFT), f32;
   sharded the sharded flagship of ``chip_smoke.py`` phase 7: four ranks in
           four processes (rank r on card r % device_count), f32 on the
@@ -31,7 +37,7 @@ For each it times ``--steps`` steps with the host clock (closed by a
 synchronise, on a mesh also by a barrier), then profiles ``--steps`` more
 with ``torch.profiler`` and prints the device time per step grouped by
 kernel family (the K1 kernel, the K2 kernel, cuBLAS/CUTLASS GEMMs, FFTs,
-NCCL, the rest) with the device's idle share, and the top kernels. A
+NCCL, copies and transposes, the rest) with the device's idle share, and the top kernels. A
 Chrome trace per configuration and form goes to ``--out``.
 
     python3 tools/profile_torch_step.py --nx 2048 --out output_profile
@@ -61,13 +67,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (K1_TRANSFORM, NRANKS, SHARD_OPTS,  # noqa: E402
-                        flagship, qg_flagship)
+from chip_smoke import (K1_EVENODD, K1_TRANSFORM, NRANKS,  # noqa: E402
+                        SHARD_OPTS, flagship, qg_flagship)
 
 K1_CONFIG = dict(backend="mxu", precision="split", transform_opts=K1_TRANSFORM)
 # configuration -> (model module of niwqg_tpu_torch, its keywords)
 CONFIGS = {
     "k1": ("CoupledModel", K1_CONFIG),
+    "mxu": ("CoupledModel", dict(backend="mxu")),
+    "k1eo": ("CoupledModel", dict(backend="mxu", precision="split",
+                                  transform_opts=K1_EVENODD)),
     "cufft": ("CoupledModel", dict(backend="native")),
     "sharded": ("CoupledModel", dict(backend="native", fast=True,
                                      transform_opts=SHARD_OPTS)),
@@ -86,11 +95,14 @@ def family(name: str) -> str:
         return "K2 a2a"
     if "nccl" in n:
         return "NCCL"
-    if "gemm" in n or "cutlass" in n or "sm90_xmma" in n:
+    if "gemm" in n or "gemv" in n or "cutlass" in n or "sm90_xmma" in n:
         return "GEMM (torch.matmul)"
     if "fft" in n:
         return "FFT (cuFFT)"
-    return "other (elementwise, reductions, copies)"
+    if any(w in n for w in ("copy", "memcpy", "catarray", "flip", "roll",
+                            "transpose")):
+        return "copies and transposes"
+    return "other (elementwise, reductions)"
 
 
 def advance(m, form, n):
