@@ -47,8 +47,10 @@ from .models.ql import QLPhysics
 from .models.uncoupled import UnCoupledPhysics
 from .models.ybj import YBJKernel
 from .parallel.mesh import RowBlock
+from .utils.profiling import span
 
 
+@span("model.transform")
 def _make_sharded_transform(nx, dtype, mesh, backend, precision="auto",
                             opts=None):
     """Distributed transform for a mesh. ``opts`` is the model's
@@ -392,20 +394,25 @@ class _ModelBase:
         strides = self._host_event_strides(extra_stride)
         done = 0
         while done < nsteps:
-            tc0 = self.tc
-            n = nsteps - done
-            for m in strides:
-                # the next post-step multiple of m after tc0
-                n = min(n, (tc0 // m + 1) * m - tc0)
-            self._runner.advance(n)
-            done += n
-            tc_now = tc0 + n
-            if tc_now % p.twrite == 0:
-                self._print_status()
-                if self._stale_grads:
-                    self.state = self.kernel.refresh_phi_gradients(self.state)
-            if self.saver.save_to_disk and tc_now % p.tsave_snapshots == 0:
-                self.saver.save_snapshot(self, self._snapshot_fields())
+            # the chunk and its host events; the yield lies outside
+            with span("shell.chunk"):
+                tc0 = self.tc
+                n = nsteps - done
+                for m in strides:
+                    # the next post-step multiple of m after tc0
+                    n = min(n, (tc0 // m + 1) * m - tc0)
+                self._runner.advance(n)
+                done += n
+                tc_now = tc0 + n
+                if tc_now % p.twrite == 0:
+                    with span("shell.status"):
+                        self._print_status()
+                    if self._stale_grads:
+                        self.state = self.kernel.refresh_phi_gradients(
+                            self.state)
+                if (self.saver.save_to_disk
+                        and tc_now % p.tsave_snapshots == 0):
+                    self.saver.save_snapshot(self, self._snapshot_fields())
             yield tc_now
 
     def run(self):
@@ -475,6 +482,7 @@ class _WaveModel(_ModelBase):
     _physics_factory = None
     _registry_factory = staticmethod(diag_mod.wave_kernel_registry)
 
+    @span("model.init")
     def __init__(self, nx=128, ny=None, L=5e5, dt=10000.0, twrite=1000,
                  tmax=250000.0, use_filter=True, cflmax=0.8, U=0.0, f=1.0e-4,
                  N=0.01, m=0.025, g=9.81, nu4=0, nu4w=0, nu=20, nuw=50.0,
@@ -507,8 +515,9 @@ class _WaveModel(_ModelBase):
             kernel_kwargs["transform"] = tr
             # on K2's route the step's sums and reflections take K2 too
             kernel_kwargs["mesh"] = mesh.with_group(tr._group)
-        self.kernel = self._make_kernel(dtype, backend, precision,
-                                        **kernel_kwargs)
+        with span("model.kernel"):
+            self.kernel = self._make_kernel(dtype, backend, precision,
+                                            **kernel_kwargs)
         self.state = self.kernel.zero_state()  # this rank's blocks
         self._init_services(self._registry_factory(), path, save_to_disk,
                             overwrite, snapshot_format=snapshot_format)
@@ -598,10 +607,12 @@ class _WaveModel(_ModelBase):
     def _snapshot_fields(self):
         return ["t", "q", "phi"]
 
+    @span("model.set_fields")
     def set_q(self, q):
         q = self._field(q, self.kernel.dtype, "q")
         self.state = self.kernel.apply_set_q(self.state, q)
 
+    @span("model.set_fields")
     def set_phi(self, phi):
         phi = self._field(phi, np.complex128, "phi")
         self.state = self.kernel.apply_set_phi(self.state, phi)
@@ -736,6 +747,7 @@ class QGModel(_ModelBase):
 
     model = " QG Model"
 
+    @span("model.init")
     def __init__(self, nx=128, ny=None, L=5e5, dt=10000.0, twrite=1000,
                  tswrite=10, tmax=250000.0, use_filter=True, U=0.0,
                  nu4=5.0e9, nu=0, mu=0, beta=0, passive_scalar=False,
@@ -762,11 +774,12 @@ class QGModel(_ModelBase):
             transform_opts = None
             # on K2's route the step's sums take K2 too
             mesh = mesh.with_group(transform._group)
-        self.kernel = QGKernel(self.params, dtype=dtype, backend=backend,
-                               precision=precision, transform=transform,
-                               transform_opts=transform_opts,
-                               fold_filter=fold_filter, device=self.device,
-                               mesh=mesh)
+        with span("model.kernel"):
+            self.kernel = QGKernel(self.params, dtype=dtype, backend=backend,
+                                   precision=precision, transform=transform,
+                                   transform_opts=transform_opts,
+                                   fold_filter=fold_filter,
+                                   device=self.device, mesh=mesh)
         self.state = self.kernel.zero_state()  # this rank's blocks
         self._init_services(diag_mod.qg_registry(), path, save_to_disk,
                             overwrite)
@@ -813,10 +826,12 @@ class QGModel(_ModelBase):
         # the reference's _step_forward always asks for ['t', 'q', 'c']
         return ["t", "q", "c"] if self.params.passive_scalar else ["t", "q"]
 
+    @span("model.set_fields")
     def set_q(self, q):
         q = self._field(q, self.kernel.dtype, "q")
         self.state = self.kernel.apply_set_q(self.state, q)
 
+    @span("model.set_fields")
     def set_c(self, c):
         """The real part of ``c`` (a complex field's imaginary part is
         dropped, as the reference's ``rfft2`` did)."""

@@ -19,6 +19,8 @@ import os
 import shutil
 import subprocess
 
+from .utils.profiling import count, span
+
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
@@ -86,6 +88,7 @@ def build_all(names=None, defines=()) -> dict:
         with open(paths[n] + ".log", "w") as fh:
             fh.write(out)
         os.replace(tmp, paths[n])
+        count("cuda_build.built")
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths
@@ -96,6 +99,7 @@ def load(name: str, defines=()) -> ctypes.CDLL:
     key = (name, tuple(defines))
     lib = _loaded.get(key)
     if lib is None:
-        lib = ctypes.CDLL(build_all([name], defines)[name])
+        with span("cuda_build.load"):
+            lib = ctypes.CDLL(build_all([name], defines)[name])
         _loaded[key] = lib
     return lib

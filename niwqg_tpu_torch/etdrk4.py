@@ -24,6 +24,7 @@ import torch
 
 from .device import complex_dtype
 from .grid import Grid
+from .utils.profiling import count, span
 
 
 class ETDRK4Coefs(NamedTuple):
@@ -53,6 +54,7 @@ def _contour_phis(ch: np.ndarray, dt: float, M: int = 32, rho: float = 1.0):
     worker count (``NIWQG_ETDRK4_WORKERS``, default the CPU count, at most
     16).
     """
+    count("etdrk4.built")
     r = rho * np.exp(2j * np.pi * ((np.arange(1.0, M + 1)) / M))
     Qh = np.empty_like(ch)
     f0 = np.empty_like(ch)
@@ -143,9 +145,12 @@ def _cached_contour_phis(ch: np.ndarray, dt: float):
     if os.path.exists(fno):
         try:
             with np.load(fno) as z:
-                return z["Qh"], z["f0"], z["fab"], z["fc"]
+                hit = z["Qh"], z["f0"], z["fab"], z["fc"]
+            count("etdrk4.cache_hit")
+            return hit
         except (OSError, ValueError, KeyError):
             pass  # corrupt or partial file: rebuild and overwrite
+    count("etdrk4.cache_miss")
     return None
 
 
@@ -183,6 +188,7 @@ def build_coefs(grid: Grid, c: np.ndarray, dt: float) -> ETDRK4Coefs:
     return coefs_cut(c, dt, grid, grid.spec_np)
 
 
+@span("etdrk4.tables")
 def coefs_cut(c: np.ndarray, dt: float, grid: Grid, cut) -> ETDRK4Coefs:
     """ETDRK4 tables of ``cut(c)``, where ``c`` is a global full-layout
     operator and ``cut`` this rank's layout of it. On a mesh whose layout

@@ -73,6 +73,12 @@ graph holds its collectives in the same order on every rank. Two routes:
 On gloo (ranks that share a card) every payload goes through the host, so
 the chunks call the step directly there, as on the host.
 
+The runner's host work is timed by spans (``utils/profiling.py``): in a
+chunk ``runner.enqueue`` (copies in, parities, replays, and any first step
+and capture), ``runner.copy_out`` and ``runner.fetch`` (the rows' transfer,
+which waits for the chunk to have run); at set-up ``runner.first_step`` and
+``runner.capture``. No span lies inside a step or a capture's region.
+
 A failed capture or replay raises; nothing retries without the graph.
 K1 and K2 count their launches on the card (``ops.csplit_mm.counts``,
 ``parallel.a2a.counts``), so their counts are the launches that replays
@@ -89,6 +95,7 @@ from typing import Optional
 import torch
 
 from .parallel.mesh import capturable
+from .utils.profiling import span
 
 
 # the runners that hold captured graphs (release_all)
@@ -265,10 +272,11 @@ class StepRunner:
         samples = _Samples(sum(sampled))
         if not self.graphs:
             s = m.state
-            for smp in sampled:
-                s, names, vec = self._direct(s, smp)
-                if smp:
-                    samples.add(names, vec)
+            with span("runner.enqueue"):
+                for smp in sampled:
+                    s, names, vec = self._direct(s, smp)
+                    if smp:
+                        samples.add(names, vec)
             m.state = s
         else:
             if self._stream is None:
@@ -278,18 +286,26 @@ class StepRunner:
             self._stream.wait_stream(cur)
             try:
                 with torch.cuda.stream(self._stream):
-                    s = self._replay_chunk(m.state, tc0, sampled, samples)
+                    with span("runner.enqueue"):
+                        s, resident = self._replay_chunk(m.state, tc0,
+                                                         sampled, samples)
+                    if resident:
+                        with span("runner.copy_out"):
+                            s = _copy_of(self._static._replace(tc=tc0 + n))
             finally:
                 # the caller's stream waits for the chunk before the old
                 # state can be freed into its pool and reused
                 cur.wait_stream(self._stream)
             m.state = s
         if samples.rows is not None:
-            m._diag_acc.append_rows(samples.names, samples.rows)
+            # the rows' transfer waits for the chunk to have run
+            with span("runner.fetch"):
+                m._diag_acc.append_rows(samples.names, samples.rows)
 
     def _replay_chunk(self, s, tc0, sampled, samples):
         """The chunk on the side stream: replays, and an eager step of a
-        kind not captured yet, followed by its capture."""
+        kind not captured yet, followed by its capture. Returns the state
+        and whether the static buffers hold it (it is then copied out)."""
         resident = False  # the static buffers hold the current state
         for i, smp in enumerate(sampled):
             g = self._graph_for(smp)
@@ -297,7 +313,10 @@ class StepRunner:
                 if resident:
                     s = _copy_of(self._static._replace(tc=tc0 + i))
                     resident = False
-                s, names, vec = self._direct(s, smp)
+                # the eager step makes cuFFT's and K2's plans and the
+                # kernels' state, which the capture must find made
+                with span("runner.first_step"):
+                    s, names, vec = self._direct(s, smp)
                 if smp:
                     samples.add(names, vec)
                 self._capture(smp, s)
@@ -315,9 +334,7 @@ class StepRunner:
             self.replays += 1
             if smp:
                 samples.add(g.names, g.vec)
-        if resident:
-            s = _copy_of(self._static._replace(tc=tc0 + len(sampled)))
-        return s
+        return s, resident
 
     def _graph_for(self, sampled: bool) -> Optional[_Graph]:
         """The graph of this kind for K2's parities now, or ``None``."""
@@ -333,6 +350,7 @@ class StepRunner:
             return g
         return variants.get(self._group.signature(g.tape.keys()))
 
+    @span("runner.capture")
     def _capture(self, sampled: bool, template) -> _Graph:
         """Capture graph A (or B where ``sampled``) on the static buffers,
         shaped after ``template``, a state just made by the same step (or

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..device import complex_dtype, resolve_device
+from ..utils.profiling import span
 from .csplit_mm import csplit_matmul_prepared, mask_split, prepare_b
 from .spectral import expand_half_to_full, project_full_to_half
 
@@ -692,6 +693,7 @@ class MatmulTransform:
         return self._mm(z[0], self._Ri[0], -1) + self._mm(z[1], self._Ri[1], -1)
 
 
+@span("model.transform")
 def make_transform(nx: int, dtype, backend: str = "auto",
                    precision: str = "auto", device=None, **mxu_opts):
     """Pick a transform provider: ``'auto'`` and ``'native'`` give

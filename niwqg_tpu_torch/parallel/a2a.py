@@ -77,6 +77,7 @@ import numpy as np
 import torch
 
 from ..cuda_build import load
+from ..utils.profiling import span
 
 # wall-clock limit of one device-side wait; past it the kernel traps
 _TIMEOUT_NS = 30 * 10**9
@@ -411,6 +412,7 @@ class PeerGroup:
     that share a card: the card time-slices them and the waits make
     progress, a time slice at a time (PERF.md has the cost)."""
 
+    @span("mesh.k2_group")
     def __init__(self, mesh=None, *, devices=None):
         if (mesh is None) == (devices is None):
             raise ValueError("PeerGroup takes a mesh or a list of devices")
@@ -589,10 +591,14 @@ class PeerGroup:
                 f"K2: no plan for a {kind} call of {tuple(shape)} {dtype} "
                 "at a CUDA graph capture: plans are built by an eager call "
                 "(they swap IPC handles between the ranks)")
-        lib = _library()
-        if self._flags is None:
-            self._setup(lib)
-        plan = _Plan(lib, self, kind, shape, dtype, chunks)
+        # set-up reached from a key's first eager call (a step's or a
+        # field's), never from a capture: the span's one exception to
+        # "no span inside a step"
+        with span("mesh.k2_group"):
+            lib = _library()
+            if self._flags is None:
+                self._setup(lib)
+            plan = _Plan(lib, self, kind, shape, dtype, chunks)
         self._plans[(kind, shape, dtype, chunks)] = plan
         return plan
 

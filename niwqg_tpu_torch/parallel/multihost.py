@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import span
 from .mesh import RowBlock, make_mesh
 
 # set once this module has brought the process group up (the JAX version
@@ -25,6 +26,7 @@ from .mesh import RowBlock, make_mesh
 _initialized = False
 
 
+@span("mesh.init")
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None, device=None,
@@ -93,6 +95,7 @@ def shutdown() -> None:
     _initialized = False
 
 
+@span("mesh.init")
 def global_mesh(device=None):
     """1-D mesh over every rank of the job."""
     return make_mesh(device=device)

@@ -47,9 +47,10 @@ Each configuration runs in one or both ``--forms``:
 For each it times ``--steps`` steps with the host clock (closed by a
 synchronise, on a mesh also by a barrier), then profiles ``--steps`` more
 with ``torch.profiler`` and prints the device time per step grouped by
-kernel family (the K1 kernel, the K2 kernel, cuBLAS/CUTLASS GEMMs, FFTs,
-NCCL, copies and transposes, the rest) with the device's idle share, and the top kernels. A
-Chrome trace per configuration and form goes to ``--out``.
+kernel family (``portbench/metrics/arithmetic.family``: the K1 kernel, the
+K2 kernel, cuBLAS/CUTLASS GEMMs, FFTs, NCCL, copies and transposes, the
+rest) with the device's idle share, and the top kernels. A Chrome trace per
+configuration and form goes to ``--out``.
 
     python3 tools/profile_torch_step.py --nx 2048 --out output_profile
     python3 tools/profile_torch_step.py --configs cufft,qg,k1 --forms eager,graph
@@ -89,6 +90,8 @@ from chip_smoke import (DEFAULT_FLAGSHIP, DEFAULT_MXU_MESH_RUNS,  # noqa: E402
                         K1_EVENODD, K1_MESH_MODEL, K1_TRANSFORM,
                         MXU_MESH_MODEL, NRANKS, SHARD_OPTS, flagship,
                         qg_flagship)
+# the benchmark's classifier of kernels by name
+from portbench.metrics.arithmetic import family  # noqa: E402
 
 K1_CONFIG = dict(backend="mxu", precision="split", transform_opts=K1_TRANSFORM)
 # configuration -> (model module of niwqg_tpu_torch, its keywords)
@@ -115,24 +118,6 @@ CONFIGS = {
     "ybj": ("YBJModel", K1_CONFIG),
     "qg": ("QGModel", dict(backend="native")),
 }
-
-
-def family(name: str) -> str:
-    n = name.lower()
-    if "csplit_mm" in n:
-        return "K1 csplit_mm"
-    if "a2a_kernel" in n:
-        return "K2 a2a"
-    if "nccl" in n:
-        return "NCCL"
-    if "gemm" in n or "gemv" in n or "cutlass" in n or "sm90_xmma" in n:
-        return "GEMM (torch.matmul)"
-    if "fft" in n:
-        return "FFT (cuFFT)"
-    if any(w in n for w in ("copy", "memcpy", "catarray", "flip", "roll",
-                            "transpose")):
-        return "copies and transposes"
-    return "other (elementwise, reductions)"
 
 
 def advance(m, form, n):
@@ -202,11 +187,16 @@ def profile(name, nx, steps, out_dir, mesh=None, forms=("eager",)):
 def summarize(prof, name, nx, steps, wall, wall_prof):
     from torch.autograd import DeviceType
 
+    # a host span (record_function: the program's spans among them) is
+    # mirrored on the device's timeline as an annotation, no device work
+    spans = {e.name for e in prof.events()
+             if getattr(e, "is_user_annotation", False)}
     fam, kernels = {}, []
     for evt in prof.key_averages():
         # device-side events only: CPU operators carry their kernels'
         # device time too, and would count it twice
-        if evt.device_type != DeviceType.CUDA:
+        if (evt.device_type != DeviceType.CUDA or evt.key in spans
+                or getattr(evt, "is_user_annotation", False)):
             continue
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0))
