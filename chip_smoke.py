@@ -204,7 +204,20 @@ Phases (any failure exits non-zero):
      card), and K2's gather kind in that layout. Rank 0's launches count
      in the result line, and the K1 and K2 records carry the 4096 shapes
      under ``shapes`` (K1's (1024, 4096, 4096) with (k)'s launches); the
-     phase's seconds are printed.
+     phase's seconds are printed;
+ 14. the fast kernel's fused derive (``csrc/derive.cu``,
+     ``niwqg_tpu_torch/ops/derive_fused.py``) on the flagship's half layout
+     at 2048² on one card: each kernel and the whole derive against the
+     plain chain on the same CUDA tensors, bit for bit (``derive_gaps``),
+     then timed beside the plain chain and its bound (its bytes at
+     ``PEAK_BYTES``). Phase 13 does the same on every rank of its 4096²
+     pencil flagship and times rank 1's (4096, 1024) block
+     (``mesh_derive``). The kernels count their launches on the card: the
+     main path (phase 4) and every run of ``_runs_on_mesh`` (phases 7, 12
+     and 13) are held to DERIVES_PER_STEP a step of each kernel their
+     layout uses and set_q's one inversion on the half layout
+     (``derive_report``). The records, with the launches of phase 4 and of
+     rank 0 in phase 13, join the result line's ``kernels``.
 
 Every ``run_steps``, ``run`` and ``run_with_snapshots`` above replays
 the step's CUDA graphs (``niwqg_tpu_torch/graphs.py``), on one card, on
@@ -1544,7 +1557,7 @@ def _sharded_rank(rank, port, route, outdir):
         # the other models on the K2 route, in this spawn; then K2 alone at
         # QG's block shape (the ragged path)
         extra.update(_runs_on_mesh(torch, mesh, FAMILY_MESH_RUNS, after={
-            "qg": lambda group: _ragged_k2(torch, mesh, rank, group)}))
+            "qg": lambda group, m: _ragged_k2(torch, mesh, rank, group)}))
     elif backend == "nccl":
         # the other models on the default route, where it is captured
         extra.update(_runs_on_mesh(torch, mesh, DEFAULT_FAMILY_MESH_RUNS))
@@ -1586,12 +1599,15 @@ def _runs_on_mesh(torch, mesh, runs, after=None):
     count with the run's), the mesh graph check where the runner captures
     (not the default route on gloo), the checkpoint round trip where the
     run asks for it; then
-    ``after[key](group)`` (K2 alone at a shape of its own, whose launches
-    are not the main path's). Returns what rank 0 saves, each entry
-    prefixed by the run's key."""
+    ``after[key](group, m)`` (K2 alone at a shape of its own, whose
+    launches are not the main path's; the fused derive on the model's
+    kernel). The fused derive's launches are counted at set-up, in the
+    warm-up, the timed steps and the census. Returns what rank 0 saves,
+    each entry prefixed by the run's key."""
     import niwqg_tpu_torch as pkg
     from niwqg_tpu_torch import InitialConditions as ic
     from niwqg_tpu_torch.ops import csplit_mm as mm
+    from niwqg_tpu_torch.ops import derive_fused as dv
     from niwqg_tpu_torch.parallel import a2a
 
     def launches():
@@ -1604,6 +1620,7 @@ def _runs_on_mesh(torch, mesh, runs, after=None):
         key, fields = run.key, mesh_fields(run.name)
         a2a.reset_counts()  # every count to 0 just before the path
         mm.reset_counts()
+        dv.reset_counts()
         kw = {k: dict(v) if isinstance(v, dict) else v
               for k, v in run.build.items()}
         t0 = time.perf_counter()
@@ -1611,10 +1628,10 @@ def _runs_on_mesh(torch, mesh, runs, after=None):
                         **{**MESH_GRAPH_RUN, **kw})
         torch.cuda.synchronize()
         out[f"{key}_t_build"] = time.perf_counter() - t0
-        n_set = launches()
+        n_set, d_set = launches(), derive_counts()
         m.run_steps(WARM_STEPS)
         torch.cuda.synchronize()
-        n_warm = launches() - n_set
+        n_warm, d_warm = launches() - n_set, derive_counts() - d_set
         warm = {k: getattr(m, k) for k in fields}  # collectives
         mesh.barrier()
         t0 = time.perf_counter()
@@ -1623,17 +1640,18 @@ def _runs_on_mesh(torch, mesh, runs, after=None):
         mesh.barrier()
         out[f"{key}_wall"] = time.perf_counter() - t0
         n_timed = launches() - n_set - n_warm
+        d_timed = derive_counts() - d_set - d_warm
         end = {k: getattr(m, k) for k in fields}
         out[f"{key}_finite"] = all(np.isfinite(v).all() for v in end.values())
-        n_census = n_timed * 0
+        n_census, d_census = n_timed * 0, d_timed * 0
         if run.census:
             # one eager step with the communication census on (a step of
             # the run: its launches count)
             from niwqg_tpu_torch.utils.census import step_census
 
-            before = launches()
+            before, d_before = launches(), derive_counts()
             census = step_census(m)
-            n_census = launches() - before
+            n_census, d_census = launches() - before, derive_counts() - d_before
             del census["transposes"]
             out[f"{key}_census"] = json.dumps(census)
             out[f"{key}_census_ok"] = all(mesh.all_gather_object(
@@ -1659,6 +1677,9 @@ def _runs_on_mesh(torch, mesh, runs, after=None):
         count = {k: v - g[1][k] for k, v in mm.counts().items()}
         tr = m.kernel.tr
         out.update({f"{key}_{k}": v for k, v in warm.items()})
+        out[f"{key}_derive"] = np.stack([d_set, d_warm, d_timed, d_census])
+        out[f"{key}_derive_use"] = derive_use(m.kernel)
+        out[f"{key}_derive_set_use"] = derive_set_use(m.kernel)
         out.update({
             f"{key}_n_set": n_set, f"{key}_n_warm": n_warm,
             f"{key}_n_timed": n_timed, f"{key}_n_ckpt": n_ckpt,
@@ -1677,7 +1698,7 @@ def _runs_on_mesh(torch, mesh, runs, after=None):
             f"{key}_transform": type(tr).__name__})
         group = tr._group  # None on the default route
         if after and key in after:
-            out.update(after[key](group))
+            out.update(after[key](group, m))
         if group is not None:
             group.close()
         del m, tr, group
@@ -2415,7 +2436,9 @@ def mesh_checks(r, run, ref, layout):
     on the tensor-core route, no plain-version call; K2's paths; the
     matmul-DFT's options as resolved; the checkpoint round trip bitwise;
     the fields after WARM_STEPS steps against the one-card run ``ref``
-    (``SHARD_RTOL``); the mesh graph check (``mesh_graph_report``) where
+    (``SHARD_RTOL``); the fused derive's launches on the card, DERIVES_PER_STEP
+    a step of every kernel the layout uses and set_q's inversion at set-up
+    (``derive_report``); the mesh graph check (``mesh_graph_report``) where
     the runner captures, else the reason it does not. Returns
     the run's launches, graph check included: (K2 forward, K2 inverse, K1)
     and (K2 gather, K2 reflect)."""
@@ -2465,6 +2488,8 @@ def mesh_checks(r, run, ref, layout):
               "the checkpoint round trip changed the launches per step")
     if run.census:
         census_report(r, run, want, n["n_census"])
+    derive_report(run.label, *get("derive"), get("derive_use"),
+                  get("derive_set_use"), census=run.census)
     if ref is not None:
         d = {k: float(np.abs(np.asarray(get(k)) - v).max()
                       / np.abs(v).max()) for k, v in ref.items()}
@@ -2864,7 +2889,9 @@ def _big_mesh_rank(rank, port, outdir):
     runs = BIG_MESH_RUNS + (BIG_DEFAULT_RUNS if mesh.backend == "nccl"
                             else ())
     out = _runs_on_mesh(torch, mesh, runs, after={
-        "big_qg": lambda group: _big_k2(torch, mesh, rank, group)})
+        "big_flagship": lambda group, m: mesh_derive(torch, mesh, m,
+                                                     "big_flagship"),
+        "big_qg": lambda group, m: _big_k2(torch, mesh, rank, group)})
     rss = max(mesh.all_gather_object(host_peak_gb()))
     if rank == 0:
         np.savez(os.path.join(outdir, "big_mesh.npz"),
@@ -2879,9 +2906,11 @@ def big_mesh_phase(torch, refs):
     (``BIG_MESH_RUNS``, and ``BIG_DEFAULT_RUNS`` on NCCL), each held by
     ``mesh_checks`` to its one-card f32 run of the same options (``refs``),
     through the mesh graph check and the census of one step, and K2 at the
-    phase's block shapes. Returns rank 0's launches (K2 forward, K2
+    phase's block shapes; the fused derive on the pencil flagship's ranks
+    (``mesh_derive``). Returns rank 0's launches (K2 forward, K2
     inverse, K1, K2 gather, K2 reflect) and K2's records at those shapes
-    by wrapper name."""
+    by wrapper name, with the fused derive's under ``"derive"`` (rank 1's
+    kernel records, rank 0's launches)."""
     import torch.multiprocessing as mp
 
     ncards = min(NRANKS, torch.cuda.device_count())
@@ -2913,7 +2942,16 @@ def big_mesh_phase(torch, refs):
     if str(r["backend"]) != "nccl":
         log(f"phase 13: the default route runs where every rank has its "
             f"own card (NCCL); here the {NRANKS} ranks share {ncards}")
-    recs = {}
+    worst = float(r["big_flagship_derive_ulps"])
+    log(f"phase 13: the fused derive on every rank of the pencil flagship "
+        f"at {NX_BIG}², each kernel and the whole derive against the plain "
+        f"chain: largest gap {worst:g} ulps")
+    check(worst == 0.0, "the fused derive is not bitwise its plain chain on "
+          "the mesh")
+    recs = {"derive": dict(
+        recs=json.loads(str(r["big_flagship_derive_recs"])),
+        launches=np.sum([r[f"{run.key}_derive"] for run in runs],
+                        axis=(0, 1))[:4])}
     for name, shape in (("big", K2_BIG), ("big_qg", QG_K2_BIG)):
         nbytes = int(np.prod(shape)) * 8
         bound, t_hbm, t_link = k2_bound_ms(nbytes, ncards)
@@ -2948,6 +2986,274 @@ def big_mesh_phase(torch, refs):
     return tuple(int(x) for x in total) + tuple(int(x) for x in extra), recs
 
 
+# phase 14: bytes each fused kernel must move, in complex values of the
+# working type a field element (a real value is half of one): what it reads
+# and writes once; the mirror partners' second reads are not counted
+DERIVE_VALUES = {
+    "derive_grad_pack": 1 + 3,
+    "derive_wave_pv": 3 + 1,
+    # fj (2), qh, the three tables (1.5); qwh, ph and the batch
+    "derive_invert": {"mirror": 4.5 + 2 + 4, "raw": 4.5 + 2 + 2},
+    "derive_project_pack": 2 + 1 + 2,
+}
+DERIVE_REPS = 50
+# the fast kernel's derives a step (one an ETDRK4 stage), each one launch
+# of every kernel its layout and physics use (``derive_use``)
+DERIVES_PER_STEP = 4
+
+
+def derive_use(K) -> np.ndarray:
+    """The launches of each kernel of ``derive_fused.KERNELS`` in one derive
+    of the kernel object ``K``: grad_pack and invert always, wave_pv with a
+    wave PV, project_pack on the pencil mesh's unprojected ``ph``; none
+    where the model has no fast kernel."""
+    from niwqg_tpu_torch.ops import derive_fused as dv
+
+    plan = getattr(K, "_plan", None)
+    if plan is None:
+        return np.zeros(len(dv.KERNELS), dtype=np.int64)
+    return np.array([1, int(bool(plan.flags & dv.WAVE_PV)), 1,
+                     int(plan.proj == dv.PROJ_RAW)], dtype=np.int64)
+
+
+def derive_counts() -> np.ndarray:
+    """The fused derive's launches on this process's cards so far, in
+    ``derive_fused.KERNELS``' order, then its plain-chain calls."""
+    from niwqg_tpu_torch.ops import derive_fused as dv
+
+    c = dv.counts()
+    return np.array([c[k] for k in dv.KERNELS + ("cpu_calls",)],
+                    dtype=np.int64)
+
+
+def derive_set_use(K) -> np.ndarray:
+    """The launches of each kernel at a model's set-up: ``set_q``'s
+    inversion with the carried wave fields on the half layout (the full
+    layout's ``set_q`` inverts without the derive)."""
+    use = derive_use(K)
+    return use * np.array([0, 1, 1, 0]) if getattr(K, "q_half", False) \
+        else use * 0
+
+
+def derive_report(label, d_set, d_warm, d_timed, d_census, use, set_use,
+                  census=False):
+    """Hold a run's fused-derive launches, each an array in
+    ``derive_fused.KERNELS``' order and then the plain-chain calls:
+    DERIVES_PER_STEP launches a step of each kernel in ``use``, the census
+    step's too, ``set_use`` at set-up, no plain chain on the card. Returns
+    the launches of each kernel in all."""
+    from niwqg_tpu_torch.ops import derive_fused as dv
+
+    d_set, d_warm, d_timed, d_census, use, set_use = (
+        np.asarray(x, dtype=np.int64)
+        for x in (d_set, d_warm, d_timed, d_census, use, set_use))
+    log(f"  fused derive launches ({', '.join(dv.KERNELS)}; counted on the "
+        f"card): set-up {d_set[:4].tolist()}, {WARM_STEPS} warm-up steps "
+        f"{d_warm[:4].tolist()}, {TIMED_STEPS} timed {d_timed[:4].tolist()}"
+        + (f", census step {d_census[:4].tolist()}" if census else "")
+        + f"; {DERIVES_PER_STEP} x {use.tolist()} a step expected")
+    check(d_set[4] + d_warm[4] + d_timed[4] + d_census[4] == 0,
+          f"{label}: a derive on the card took the plain chain")
+    for what, got, steps in (("warm-up", d_warm, WARM_STEPS),
+                             ("timed", d_timed, TIMED_STEPS),
+                             ("census", d_census, int(census))):
+        check(np.array_equal(got[:4], DERIVES_PER_STEP * steps * use),
+              f"{label}: the fused derive launched {got[:4].tolist()} in "
+              f"{steps} {what} steps, not {DERIVES_PER_STEP} x "
+              f"{use.tolist()} a step")
+    check(np.array_equal(d_set[:4], set_use), f"{label}: the fused derive "
+          f"launched {d_set[:4].tolist()} at set-up, not set_q's "
+          f"{set_use.tolist()}")
+    return (d_set + d_warm + d_timed + d_census)[:4]
+
+
+def derive_inputs(torch, K, seed):
+    """Random spectra in the kernel object's layouts: the q side's block
+    and the phi side's."""
+    rng = np.random.default_rng(seed)
+
+    def cx(shape):
+        z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.as_tensor(z, dtype=K.cdtype, device=K.device)
+
+    return cx(K.zero_state().qh.shape), cx(K.grid.spec_shape)
+
+
+def ulps(torch, got, want) -> float:
+    """The largest difference in units of the working type's epsilon at
+    the reference's largest magnitude (0: bit for bit)."""
+    if torch.equal(got, want):
+        return 0.0
+    eps = torch.finfo(want.real.dtype).eps
+    scale = want.abs().max().item()
+    return (got - want).abs().max().item() / (eps * scale)
+
+
+def derive_gaps(torch, K, seed):
+    """Each of the fused derive's kernels, and the whole derive, against
+    the plain chain of the kernel object ``K`` on the same CUDA tensors:
+    ``{what: ulps}``. On a mesh every rank calls it (the transforms and the
+    reflection are collectives)."""
+    qh, phih = derive_inputs(torch, K, seed)
+    prev = K.derive(qh * 0.5, phih * 0.5, plain=True)
+    gaps = {}
+    bp = K._grad_pack(phih, True)
+    gaps["grad_pack"] = ulps(torch, K._grad_pack(phih, False), bp)
+    pg = K.tr.ifft2(bp)
+    phix, phiy = pg[1], pg[2]
+    if K.physics.stale_phi_gradients:
+        phix, phiy = prev.phix, prev.phiy
+    fj = None
+    if K.physics.has_wave_pv:
+        wp = K._wave_pv(pg[0], phix, phiy, True)
+        gaps["wave_pv"] = ulps(torch, K._wave_pv(pg[0], phix, phiy, False),
+                               wp)
+        fj = K._fwd_real(wp)
+    got = K._invert_pack(qh, fj, False)
+    qwh, ph, specs = K._invert_pack(qh, fj, True)
+    # the batch as the inverse takes it
+    for what, a, c in zip(("qwh", "ph", "batch"), got,
+                          (qwh, ph, K._inv_prepare(specs))):
+        gaps[what] = ulps(torch, a, c)
+    D = K.derive(qh, phih, prev)
+    Dp = K.derive(qh, phih, prev, plain=True)
+    for f in D._fields:
+        a, c = getattr(D, f), getattr(Dp, f)
+        gaps["D." + f] = (0.0 if a is None and c is None
+                          else ulps(torch, a, c))
+    return gaps
+
+
+def derive_phase(torch):
+    """Phase 14: the fused derive's kernels on the flagship's half layout
+    at NX² on one card, held bitwise to the plain chain and timed beside it
+    and their bound. (A rank's block of the NX_BIG² pencil mesh: phase 13,
+    ``mesh_derive``.)"""
+    from niwqg_tpu_torch import CoupledModel
+    from niwqg_tpu_torch import InitialConditions as ic
+    from niwqg_tpu_torch.ops import derive_fused as dv
+
+    recs = {k: [] for k in dv.KERNELS}
+    m = flagship(CoupledModel, ic, fast=True, backend="native",
+                 dtype=np.float32)
+    K = m.kernel
+    gaps = derive_gaps(torch, K, seed=14)
+    check(not any(gaps.values()), f"fused derive not bitwise: {gaps}")
+    log(f"phase 14: fused derive bitwise the plain chain at {NX}² "
+        f"(q_half={K.q_half}): {sorted(gaps)}")
+    s = m.state
+    qh, phih = s.qh, s.phih
+    pg = K.tr.ifft2(K._grad_pack(phih, True))
+    fj = K._fwd_real(K._wave_pv(pg[0], pg[1], pg[2], True))
+    log(f"phase 14: {NX}² one card, half layout {tuple(qh.shape)}")
+    fused = {
+        "derive_grad_pack": (phih, lambda: K._grad_pack(phih, False),
+                             lambda: K._grad_pack(phih, True), "one card"),
+        "derive_wave_pv": (pg[0], lambda: K._wave_pv(*pg, False),
+                           lambda: K._wave_pv(*pg, True), "one card"),
+        "derive_invert": (
+            qh, lambda: K._invert_pack(qh, fj, False),
+            lambda: K._inv_prepare(K._invert_pack(qh, fj, True)[2]),
+            "mirror")}
+    for name, (field, fn, plain, how) in fused.items():
+        values = DERIVE_VALUES[name]
+        recs[name].append(derive_record(
+            torch, name, "one card", field, fn, plain,
+            values[how] if isinstance(values, dict) else values))
+    card = [qh.device]
+    whole = k2_times(torch, lambda: K.derive(qh, phih, s.d), card,
+                     DERIVE_REPS)[0]
+    whole_p = k2_times(torch, lambda: K.derive(qh, phih, s.d, plain=True),
+                       card, DERIVE_REPS)[0]
+    log(f"  the whole derive, transforms included: {whole:.4f} ms fused, "
+        f"{whole_p:.4f} ms plain ({4 * (whole_p - whole):.3f} ms a step "
+        "saved at 4 a step)")
+    del m, K, pg, fj
+    torch.cuda.empty_cache()
+    return recs
+
+
+def derive_record(torch, name, layout, field, fused, plain, values):
+    """``fused`` and ``plain`` (may be None) on ``field``'s card, each
+    DERIVE_REPS calls queued behind a sleep (``k2_times``: device ms a
+    call by CUDA events, host µs a call), beside the bound of ``values``
+    complex values of 8 bytes an element of ``field``."""
+    shape, n, card = field.shape, field.numel(), [field.device]
+    ms, us, _ = k2_times(torch, fused, card, DERIVE_REPS)
+    pms = (None if plain is None
+           else k2_times(torch, plain, card, DERIVE_REPS)[0])
+    bound = values * n * 8 / PEAK_BYTES * 1e3
+    log(f"  {name} {layout} {tuple(shape)}: {ms:.4f} ms (bound {bound:.4f},"
+        f" {100 * bound / ms:.1f}%; host {us:.1f} µs a call), plain chain "
+        + ("not timed alone" if pms is None else f"{pms:.4f} ms"))
+    return dict(layout=layout, shape=list(shape), ms=round(ms, 4),
+                bound_ms=round(bound, 4),
+                plain_ms=None if pms is None else round(pms, 4))
+
+
+def mesh_derive(torch, mesh, m, key, seed=13):
+    """Phase 13 on a pencil mesh rank of the NX_BIG² flagship (every rank
+    calls it): the fused derive bitwise its plain chain on every rank
+    (``derive_gaps``); then rank 1's kernels alone timed while the others
+    wait (the reflection made beforehand), beside their bounds and the
+    plain chain's grad and wave-PV packs; and the inversion with its
+    reflection exchange, fused and plain, on every rank at once (rank 1's
+    time). Returns rank 0's entries, prefixed by ``key``: ``derive_ulps``
+    (the largest over ranks) and ``derive_recs`` (rank 1's, JSON)."""
+    from niwqg_tpu_torch.ops import derive_fused as dv
+    from niwqg_tpu_torch.parallel.mesh import reflect_spectrum
+
+    K = m.kernel
+    gaps = derive_gaps(torch, K, seed)
+    worst = max(max(g.values()) for g in mesh.all_gather_object(gaps))
+    qh, phih = derive_inputs(torch, K, seed + 1)
+    pg = K.tr.ifft2(K._grad_pack(phih, True))
+    fj = K._fwd_real(K._wave_pv(*pg, True))
+    qwh, ph, batch = dv.invert(qh, fj, K.qtab.wv2, K.qtab.wv2i,
+                               K.qtab.filtr, K._plan)
+    refl = reflect_spectrum(ph, mesh).contiguous()
+    recs = {k: [] for k in dv.KERNELS}
+    layout = f"mesh rank 1 of {mesh.nP}"
+    mesh.barrier()
+    if mesh.rank == 1:
+        for name, field, fn, plain, values in (
+                ("derive_grad_pack", phih,
+                 lambda: K._grad_pack(phih, False),
+                 lambda: K._grad_pack(phih, True),
+                 DERIVE_VALUES["derive_grad_pack"]),
+                ("derive_wave_pv", pg[0], lambda: K._wave_pv(*pg, False),
+                 lambda: K._wave_pv(*pg, True),
+                 DERIVE_VALUES["derive_wave_pv"]),
+                ("derive_invert", qh,
+                 lambda: dv.invert(qh, fj, K.qtab.wv2, K.qtab.wv2i,
+                                   K.qtab.filtr, K._plan), None,
+                 DERIVE_VALUES["derive_invert"]["raw"]),
+                ("derive_project_pack", qh,
+                 lambda: dv.project_pack(ph, refl, batch, K._plan), None,
+                 DERIVE_VALUES["derive_project_pack"])):
+            recs[name].append(derive_record(torch, name, layout, field, fn,
+                                            plain, values))
+    mesh.barrier()
+    # the inversion with the reflection exchange, every rank at once
+    card = [mesh.device]
+    with_x = k2_times(torch, lambda: K._invert_pack(qh, fj, False), card,
+                      DERIVE_REPS, mesh.barrier)[0]
+    with_x_plain = k2_times(torch, lambda: K._invert_pack(qh, fj, True),
+                            card, DERIVE_REPS, mesh.barrier)[0]
+    if mesh.rank == 1:
+        recs["derive_invert"][0].update(
+            with_exchange_ms=round(with_x, 4),
+            plain_with_exchange_ms=round(with_x_plain, 4))
+        log(f"  derive_invert + reflection + derive_project_pack, every "
+            f"rank at once: {with_x:.4f} ms; the plain chain with its "
+            f"reflection {with_x_plain:.4f} ms (rank 1; {mesh.nP} ranks on "
+            f"{torch.cuda.device_count()} card(s))")
+    every = mesh.all_gather_object(recs)
+    del qh, phih, pg, fj, qwh, ph, batch, refl
+    return {f"{key}_derive_ulps": worst,
+            f"{key}_derive_recs": json.dumps(every[1])}
+
+
 def family_refs(torch):
     """The one-card f32 cuFFT runs phase 7's QG, UnCoupled, QL and YBJ are
     held to: their fields after WARM_STEPS steps (UnCoupled and QL with
@@ -2976,13 +3282,13 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11,12,13,14",
                     help="phases to run beyond the card report and the "
                          "build (default: all; a partial run is for "
                          "debugging and prints no result lines)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",") if x}
-    full = phases >= set(range(3, 14))
+    full = phases >= set(range(3, 15))
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3011,6 +3317,7 @@ def run_phases(torch, phases, full) -> int:
     from niwqg_tpu_torch import cuda_build
     from niwqg_tpu_torch.device import full_fp32_matmul
     from niwqg_tpu_torch.ops import csplit_mm as mm
+    from niwqg_tpu_torch.ops import derive_fused as dv
     from niwqg_tpu_torch.parallel import a2a
 
     laps, t_lap = [], time.perf_counter()
@@ -3062,6 +3369,8 @@ def run_phases(torch, phases, full) -> int:
         mxu_phase(torch, mm, {})
     if 12 in phases and not full:
         mxu_mesh_phase(torch, mesh_refs(torch))
+    if 14 in phases and not full:
+        derive_phase(torch)
     if 13 in phases and not full:
         t13 = time.perf_counter()
         big_refs, _, _ = big_phase(torch, mm)
@@ -3082,15 +3391,16 @@ def run_phases(torch, phases, full) -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     mm.reset_counts()
+    dv.reset_counts()
     t0 = time.perf_counter()
     m = flagship(CoupledModel, ic, **K1_MODEL, **GRAPH_RUN)
     torch.cuda.synchronize()
     log(f"flagship f32 K1 model built and initialised in "
         f"{time.perf_counter() - t0:.1f} s ({type(m.kernel).__name__}, "
         f"q_half={m.kernel.q_half})")
-    n_set = mm.counts()["launches"]
+    n_set, d_set = mm.counts()["launches"], derive_counts()
     m.run_steps(WARM_STEPS)
-    n_warm = mm.counts()["launches"] - n_set
+    n_warm, d_warm = mm.counts()["launches"] - n_set, derive_counts() - d_set
     q32, phi32, ke32 = m.q, m.phi, m.Ke
     t0 = time.perf_counter()
     m.run_steps(TIMED_STEPS)
@@ -3101,10 +3411,14 @@ def run_phases(torch, phases, full) -> int:
     count = mm.counts()
     launches = count["launches"]
     n_timed = launches - n_set - n_warm
+    d_timed = derive_counts() - d_set - d_warm
     log(f"main path: {TIMED_STEPS} steps in {wall:.3f} s = "
         f"{TIMED_STEPS / wall:.3f} steps/s ({1e3 * wall / TIMED_STEPS:.1f} "
         f"ms/step); K1 launches: set_q/set_phi {n_set}, warm-up {n_warm}, "
         f"timed {n_timed} ({n_timed / TIMED_STEPS:.1f}/step)")
+    derive_main = derive_report("the main path", d_set, d_warm, d_timed,
+                                d_timed * 0, derive_use(m.kernel),
+                                derive_set_use(m.kernel))
     check(count["cpu_calls"] == 0, "K1 ran its plain version")
     check(n_warm == K1_PER_STEP * WARM_STEPS
           and n_timed == K1_PER_STEP * TIMED_STEPS,
@@ -3226,11 +3540,18 @@ def run_phases(torch, phases, full) -> int:
     rec["launches"] += n
     lap("13 (one card)")
     launches13, k2_big = big_mesh_phase(torch, big_refs)
+    derive_mesh = k2_big.pop("derive")
     for name, n in zip(K2_RECORDS, launches13[:2] + launches13[3:]):
         k2_recs[name]["launches"] += n
     rec["launches"] += launches13[2]  # (k)'s, rank 0
     lap("13 (mesh)")
     log(f"phase 13 took {t_lap - t13:.0f} s (one card and mesh)")
+
+    # -- 14. the fused derive ------------------------------------------------
+    derive_recs = derive_phase(torch)
+    for name, shapes in derive_mesh["recs"].items():
+        derive_recs[name] += shapes
+    lap("14")
 
     order = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")
@@ -3265,6 +3586,15 @@ def run_phases(torch, phases, full) -> int:
                             source="niwqg_tpu_torch/csrc/a2a.cu",
                             replaces=f"niwqg_tpu/parallel/pallas_a2a.py:{line}",
                             **{k: k2_recs[name][k] for k in order}, **extra))
+    # the fused derive: its launches on the main path (phase 4) and on rank
+    # 0 of phase 13's mesh runs, counted on the card
+    derive_launches = derive_main + np.asarray(derive_mesh["launches"])
+    for i, (name, shapes) in enumerate(derive_recs.items()):
+        kernels.append(dict(name=name, route="cuda",
+                            source="niwqg_tpu_torch/csrc/derive.cu",
+                            replaces=None,
+                            launches=int(derive_launches[i]),
+                            shapes=shapes))
     log(f"the sharded phases ran {NRANKS} ranks on {ncards} card(s)"
         + ("" if ncards == NRANKS else ": their times were taken with "
            "ranks sharing a card and are not multi-card times"))

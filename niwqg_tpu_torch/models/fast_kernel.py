@@ -20,7 +20,11 @@ Same ETDRK4 stage structure, budget integration and physics as
   - ``pair_inverse`` keeps the q side on the full spectrum and reads
     every stacked real-inverse batch through pair-packed complex inverses
     (``ifft2(A + iB) = a + ib``): on a pencil mesh that halves the
-    transpose volume of the real-inverse group.
+    transpose volume of the real-inverse group;
+  - ``derive`` is three transforms with one hand-written CUDA kernel in
+    each gap between them on the card (``ops/derive_fused.py``,
+    ``csrc/derive.cu``), each writing the batch the next transform takes;
+    the plain chain on host tensors.
 
 On a mesh tables are this rank's columns, and the masks of the mean mode
 and of the self-mirror columns ``k = 0, nx/2`` come from the global column
@@ -40,8 +44,11 @@ import numpy as np
 import torch
 
 from ..etdrk4 import fold_filter_into
-from ..ops import spectral
+from ..ops import derive_fused, spectral
+from ..ops.derive_fused import Plan
 from ..ops.spectral import abs2, jmul, mul_i
+from ..parallel.mesh import reflect_spectrum
+from ..utils.profiling import count
 from .kernel import Derived, KernelParams, StageSources, WaveKernel, \
     WavePhysics, WaveState
 
@@ -104,14 +111,6 @@ class FastWaveKernel(WaveKernel):
             )
             self._flt_q = self.qtab.filtr
             self._fwd_real = self.tr.rfft2
-
-            def _inv_real(z):
-                # irfft2 projects only the k-direction residue; fold in the
-                # within-column (l <-> -l) projection of the self-mirror
-                # columns that real(ifft(.)) performs
-                return self.tr.irfft2(self._project_mirror_cols(z))
-
-            self._inv_real = _inv_real
             # Hermitian-degeneracy weights: interior columns stand for
             # their dropped conjugate mirrors (padded columns weigh 0)
             deg = np.full((1, nk), 2.0)
@@ -127,18 +126,6 @@ class FastWaveKernel(WaveKernel):
         # rank, in the q side's layout
         self._mirror_cols = g.local_cols([0, params.nx // 2], qwidth)
         if self.pair_inverse:
-            # The O(ny) 2-column projection replaces the full
-            # fft(real(ifft(.))) sandwich: interior mirror columns stay
-            # Hermitian up to rounding, so only the self-mirror columns
-            # carry systematic anti-Hermitian content (mean-flow advection
-            # phase). Residual rounding-grade asymmetry lands on the
-            # partner field as eps*||q||-scale noise. The mode is opt-in.
-            def _inv_real_pairs(z):
-                if z.dim() == 2:
-                    return self.tr.ifft2_real(z)
-                return self.tr.ifft2_real_pairs(self._project_mirror_cols(z))
-
-            self._inv_real = _inv_real_pairs
             # l-derivative table, Nyquist-row interior columns zeroed: an
             # l-derivative of a Hermitian spectrum is purely anti-Hermitian
             # there; the full-projection read annihilates it, and the
@@ -147,6 +134,11 @@ class FastWaveKernel(WaveKernel):
             l_dy[g.ny // 2, 1:params.nx // 2] = 0.0
             l_dy[g.ny // 2, params.nx // 2 + 1:] = 0.0
             self._l_dy = g._dev(l_dy)
+
+        def _inv_real(z):
+            return self._inv_packed(self._inv_prepare(z))
+
+        self._inv_real = _inv_real
         # spectral-budget weights (f64 numpy, cast once): each budget
         # scalar is one weighted reduction
         p = params
@@ -175,6 +167,11 @@ class FastWaveKernel(WaveKernel):
             self.coefs_w = fold_filter_into(self.coefs_w, self._flt_w)
             self._flt_q = None
             self._flt_w = None
+        # what the derive's kernels read (ops/derive_fused.py); the card's
+        # launch counters are made here, outside any capture
+        self._plan = self._derive_plan()
+        if self.device.type == "cuda":
+            derive_fused.launch_counter(self.device)
 
     def _q_layout(self):
         """Resolve ``q_half`` now that the transform is known; the q side's
@@ -228,42 +225,82 @@ class FastWaveKernel(WaveKernel):
                 and not self.physics.stale_q_psi)
 
     # ------------------------------------------------------------------
-    def derive(self, qh, phih, prev=None) -> Derived:
-        g = self.grid
-        pg = self.tr.ifft2(torch.stack([phih, mul_i(phih, g.k),
-                                        mul_i(phih, g.l)]))
+    def derive(self, qh, phih, prev=None, plain=None) -> Derived:
+        """The derived fields of ``(qh, phih)``: on the card three
+        transforms with one kernel of ``ops/derive_fused.py`` in each gap,
+        on host tensors the plain chain (``plain``, by default, is whether
+        the tensors are the host's; ``plain=True`` on the card is the
+        oracle the kernels are held to)."""
+        if plain is None:
+            plain = qh.device.type == "cpu"
+        pg = self.tr.ifft2(self._grad_pack(phih, plain))
         phix, phiy = pg[1], pg[2]
         if self.physics.stale_phi_gradients and prev is not None:
             phix, phiy = prev.phix, prev.phiy
-        D = self._invert_core(qh, pg[0], phix, phiy)
+        D = self._invert_core(qh, pg[0], phix, phiy, plain)
         if self.physics.stale_q_psi and prev is not None:
             D = D._replace(q_psi=prev.q_psi)  # frozen at the set_q value
         return D
 
-    def _project_mirror_cols(self, z):
-        return spectral.hermitian_project_half(z, self.params.nx,
-                                               self._mirror_cols)
-
-    def _project_ph(self, ph):
-        """The reference inversion's ``fft(real(ifft(.)))`` sandwich."""
-        if self.q_half or self.pair_inverse:
-            # the 2-column projection suffices (see ``pair_inverse``)
-            return self._project_mirror_cols(ph)
-        return spectral.hermitian_project(ph, self.mesh)
-
-    def _invert_core(self, qh, phi, phix, phiy) -> Derived:
+    def _invert_core(self, qh, phi, phix, phiy, plain=None) -> Derived:
         """Inversion + derived physical fields from given wave fields
         (shared by ``derive`` and ``apply_set_q``, which inverts with the
         carried phi)."""
-        qt, p = self.qtab, self.params
+        if plain is None:
+            plain = qh.device.type == "cpu"
+        if qh.device.type == "cpu":
+            derive_fused.count_host_call()
+        elif not plain:
+            count("step.derive_fused")
+        fj = None
         if self.physics.has_wave_pv:
-            z = phix.conj() * phiy - phiy.conj() * phix
-            fj = self._fwd_real(torch.stack([abs2(phi), jmul(z).real]))
+            fj = self._fwd_real(self._wave_pv(phi, phix, phiy, plain))
+        qwh, ph, batch = self._invert_pack(qh, fj, plain)
+        # the kernels project the batch's self-mirror columns themselves
+        gb = self._inv_real(batch) if plain else self._inv_packed(batch)
+        i = 0 if self._drop_p else 1
+        p_ = None if self._drop_p else gb[0]
+        u, v, q = gb[i], gb[i + 1], gb[i + 2]
+        q_psi = gb[i + 3] if self.physics.subtracts_wave_pv else q
+        return Derived(ph=ph, p=p_, q=q, q_psi=q_psi, qwh=qwh, phi=phi,
+                       phix=phix, phiy=phiy, u=u, v=v)
+
+    def _grad_pack(self, phih, plain):
+        """``[phih, ik phih, il phih]``, the batch of ``tr.ifft2``."""
+        if not plain:
+            return derive_fused.grad_pack(phih, self._plan)
+        g = self.grid
+        return torch.stack([phih, mul_i(phih, g.k), mul_i(phih, g.l)])
+
+    def _wave_pv(self, phi, phix, phiy, plain):
+        """``[|phi|^2, Re(i z)]``, ``z = phix* phiy - phiy* phix``: the
+        batch of the forward real transform."""
+        if not plain:
+            return derive_fused.wave_pv(phi, phix, phiy)
+        z = phix.conj() * phiy - phiy.conj() * phix
+        return torch.stack([abs2(phi), jmul(z).real])
+
+    def _invert_pack(self, qh, fj, plain):
+        """``(qwh, ph, batch)`` from the forward transform ``fj`` of the
+        wave-PV batch (``None`` without a wave PV): the spectra ``Derived``
+        keeps, and the stack of the fields a stage consumes, which the
+        kernels hand over as ``_inv_prepare`` would (plain: before it)."""
+        qt = self.qtab
+        if not plain:
+            a = self._plan
+            qwh, ph, batch = derive_fused.invert(qh, fj, qt.wv2, qt.wv2i,
+                                                 qt.filtr, a)
+            if a.proj == derive_fused.PROJ_RAW:
+                # the mirror columns live on other ranks: exchange, project
+                derive_fused.project_pack(
+                    ph, reflect_spectrum(ph, self.mesh), batch, a)
+            return qwh, ph, batch
+        if fj is not None:
             gphi2h = fj[0] * (-qt.wv2)
             jach = spectral.zero_mean_mode(fj[1], self.grid.owns_mean_mode)
             if self.physics.wave_pv_imag_jac:
                 jach = jmul(jach)  # the reference QL transcription bug
-            qwh = ((0.5 * gphi2h + jach) * 0.5 / p.f) * qt.filtr
+            qwh = ((0.5 * gphi2h + jach) * 0.5 / self.params.f) * qt.filtr
         else:
             qwh = torch.zeros_like(qh)
 
@@ -276,13 +313,81 @@ class FastWaveKernel(WaveKernel):
             specs.insert(0, ph)
         if self.physics.subtracts_wave_pv:
             specs.append(qh - qwh)
-        gb = self._inv_real(torch.stack(specs))
-        i = 0 if self._drop_p else 1
-        p_ = None if self._drop_p else gb[0]
-        u, v, q = gb[i], gb[i + 1], gb[i + 2]
-        q_psi = gb[i + 3] if self.physics.subtracts_wave_pv else q
-        return Derived(ph=ph, p=p_, q=q, q_psi=q_psi, qwh=qwh, phi=phi,
-                       phix=phix, phiy=phiy, u=u, v=v)
+        return qwh, ph, torch.stack(specs)
+
+    def _derive_plan(self) -> Plan:
+        """The layout and physics as the derive's kernels read them: the
+        choices ``_invert_pack``'s plain chain, ``_l_dy`` and
+        ``_project_ph`` make, as numbers."""
+        g, ph, p = self.grid, self.physics, self.params
+        one_rank = self.mesh is None or self.mesh.nP == 1
+        if not ph.hermitian_ph:
+            proj = derive_fused.PROJ_NONE
+        elif self.q_half or self.pair_inverse:
+            proj = derive_fused.PROJ_MIRROR
+        else:
+            proj = (derive_fused.PROJ_REFLECT if one_rank
+                    else derive_fused.PROJ_RAW)
+        slots = ["u", "v", "q"]
+        if not self._drop_p:
+            slots.insert(0, "ph")
+        if ph.subtracts_wave_pv:
+            slots.append("qpsi")
+        wq = self._qshape[1]
+        # PyTorch's CUDA division by a scalar multiplies by its reciprocal,
+        # rounded on the host in the working type
+        inv_f = (1.0 / p.f if self.rdtype == torch.float64
+                 else float(np.float32(1.0) / np.float32(p.f)))
+        return Plan(
+            k=g.k[0].contiguous(), l=g.l[:, 0].contiguous(),
+            kq=self.qtab.k[0].contiguous(),
+            col0=0 if one_rank else self.mesh.block(wq * self.mesh.nP).start,
+            nx=p.nx, nreal=p.nx // 2 + 1 if self.q_half else p.nx,
+            nyq=(derive_fused.NYQ_HALF if self.q_half else
+                 derive_fused.NYQ_PAIR if self.pair_inverse else
+                 derive_fused.NYQ_L),
+            flags=((derive_fused.WAVE_PV if ph.has_wave_pv else 0)
+                   | (derive_fused.IMAG_JAC if ph.wave_pv_imag_jac else 0)
+                   | (derive_fused.OWNS_MEAN if g.owns_mean_mode else 0)),
+            proj=proj,
+            slots=tuple(slots.index(s) if s in slots else -1
+                        for s in derive_fused.SLOTS),
+            inv_f=inv_f)
+
+    def _inv_prepare(self, z):
+        """What a stack of q-side spectra needs before ``_inv_packed``.
+        irfft2 projects only the k-direction residue; the half layout folds
+        in the within-column (l <-> -l) projection of the self-mirror
+        columns that real(ifft(.)) performs. Under ``pair_inverse`` that
+        O(ny) 2-column projection replaces the full fft(real(ifft(.)))
+        sandwich: interior mirror columns stay Hermitian up to rounding, so
+        only the self-mirror columns carry systematic anti-Hermitian content
+        (mean-flow advection phase); residual rounding-grade asymmetry lands
+        on the partner field as eps*||q||-scale noise (the mode is
+        opt-in)."""
+        if self.q_half or (self.pair_inverse and z.dim() > 2):
+            return self._project_mirror_cols(z)
+        return z
+
+    def _inv_packed(self, z):
+        """Each layout's inverse real transform of q-side spectra made
+        ready by ``_inv_prepare`` (``_inv_real`` is the two)."""
+        if self.q_half:
+            return self.tr.irfft2(z)
+        if self.pair_inverse and z.dim() > 2:
+            return self.tr.ifft2_real_pairs(z)
+        return self.tr.ifft2_real(z)
+
+    def _project_mirror_cols(self, z):
+        return spectral.hermitian_project_half(z, self.params.nx,
+                                               self._mirror_cols)
+
+    def _project_ph(self, ph):
+        """The reference inversion's ``fft(real(ifft(.)))`` sandwich."""
+        if self.q_half or self.pair_inverse:
+            # the 2-column projection suffices (see ``pair_inverse``)
+            return self._project_mirror_cols(ph)
+        return spectral.hermitian_project(ph, self.mesh)
 
     # ------------------------------------------------------------------
     # shared RHS products (also feed the spectral budget sources)

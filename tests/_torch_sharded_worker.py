@@ -17,7 +17,10 @@ checkpoints moving to and from the JAX package's mxu-mesh file),
 versions against ``torch.distributed``; each model's run() and run_steps
 on the K2 route and on the default route; K2's, K1's and the library's
 calls in one step of each kind, A and B, of ``chip_smoke.py``'s mesh
-configurations; no host value in a default-route step).
+configurations; no host value in a default-route step), ``derive_card``
+(on the card, ranks sharing it: the fused derive's kernels against its
+plain chain on the pencil mesh, K2's route and the default one, and on the
+matmul-DFT's mesh; every rank's gaps gathered to rank 0).
 """
 
 import os
@@ -36,8 +39,9 @@ torch.set_num_threads(1)
 
 from niwqg_tpu_torch.parallel import multihost
 
-from _torch_sharded_common import (DIAGS, FAMILY_CONFIGS,  # noqa: E402
-                                    FAMILY_DIAGS, FAMILY_FIELDS, HostValues,
+from _torch_sharded_common import (DEFAULT_OPTS, DIAGS,  # noqa: E402
+                                    FAMILY_CONFIGS, FAMILY_DIAGS,
+                                    FAMILY_FIELDS, HostValues, K2_OPTS,
                                     K1_MESH_NX, K1_MESH_STEPS, MODEL_CONFIGS,
                                     MESH_GRAPH_CASES, MESH_ROUTES, MXU_CASES,
                                     MXU_HELD, MXU_OPTION_SETS, NX, SEED,
@@ -692,6 +696,38 @@ def graph_pins(mesh, pkg, ic):
     return res
 
 
+def suite_derive_card(mesh):
+    import torch.distributed as dist
+
+    from chip_smoke import derive_gaps
+    from niwqg_tpu_torch.ops import derive_fused
+
+    import niwqg_tpu_torch as pkg
+
+    runs = {"coupled_k2": ("CoupledModel", K2_OPTS, "native"),
+            "coupled_default": ("CoupledModel", DEFAULT_OPTS, "native"),
+            "ql_k2": ("QLModel", K2_OPTS, "native"),
+            "uncoupled_quirks_default": ("UnCoupledModel", DEFAULT_OPTS,
+                                         "native"),
+            "coupled_mxu_k2": ("CoupledModel", K2_OPTS, "mxu")}
+    gaps = {}
+    derive_fused.reset_counts()
+    for key, (mod, opts, backend) in runs.items():
+        kw = {"faithful_quirks": True} if mod == "UnCoupledModel" else {}
+        m = getattr(pkg, mod).Model(nx=256, dtype=np.float32, fast=True,
+                                    mesh=mesh, backend=backend,
+                                    transform_opts=dict(opts), **kw)
+        for what, v in derive_gaps(torch, m.kernel, seed=SEED).items():
+            gaps[f"gap_{mesh.rank}_{key}_{what}"] = v
+        del m
+    every = [None] * mesh.nP
+    dist.all_gather_object(every, gaps)
+    res = {k: v for g in every for k, v in g.items()}
+    res["launches_project_pack"] = derive_fused.counts()[
+        "derive_project_pack"]
+    return res
+
+
 def main():
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -699,13 +735,15 @@ def main():
         bare_warned = [str(w.message) for w in caught
                        if "niwqg" in str(w.filename)]
     assert not torch.distributed.is_initialized()
-    multihost.initialize(f"localhost:{port}", nranks, rank, device="cpu",
+    device = "cuda" if suite == "derive_card" else "cpu"
+    multihost.initialize(f"localhost:{port}", nranks, rank, device=device,
                          timeout_s=180)
-    mesh = multihost.global_mesh(device="cpu")
+    mesh = multihost.global_mesh(device=None if device == "cuda" else "cpu")
     assert (mesh.rank, mesh.nP) == (rank, nranks)
     res = {"pfft": suite_pfft, "model": suite_model,
            "misc": suite_misc, "family": suite_family,
-           "mxu": suite_mxu, "mesh_graph": suite_mesh_graph}[suite](mesh)
+           "mxu": suite_mxu, "mesh_graph": suite_mesh_graph,
+           "derive_card": suite_derive_card}[suite](mesh)
     res["bare_warnings"] = len(bare_warned)
     res["out_path"] = out
     if rank == 0:

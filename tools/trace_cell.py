@@ -18,7 +18,10 @@ spans (``mesh``: ``mesh.init`` and ``mesh.k2_group``; ``model``:
 and ``runner.capture``; the last two less the ``mesh.*`` spans inside them);
 and the traced yields' device idle by the innermost program span over each
 idle stretch (``portbench/spans.py``), with the run loop's share
-(``shell.*`` and ``runner.*``) in ms a step. The spans are read after the
+(``shell.*`` and ``runner.*``) in ms a step; and the fused derive's counter
+``step.derive_fused`` beside four times the eager steps and captures
+(``runner.first_step``, ``runner.capture``), which it exceeds by set_q's
+inversion on the half layout. The spans are read after the
 traced yields. Exits as ``run.py`` does. A stopgap: once the harness
 carries each rank's spans in its record, its readers print these numbers
 and this tool goes (PERF.md, Open questions).
@@ -81,12 +84,18 @@ def rank_line(r: dict) -> dict:
             if chunks and k.startswith(("shell.", "runner."))}
     split = {k: S.setup_seconds(sp, names, less)
              for k, (names, less) in S.GROUPS.items()}
+    # the fused derive: 4 a step of every eager step and capture (a replay
+    # runs no host code), and set_q's inversion on the half layout
+    steps = sum(tot.get(k, {}).get("calls", 0)
+                for k in ("runner.first_step", "runner.capture"))
+    derive = {"counted": sp["counters"].get("step.derive_fused", 0),
+              "four_per_eager_step_and_capture": 4 * steps}
     return {"rank": r["rank"],
             "setup_parts_s": r["counters"]["setup_parts_s"],
             "program_setup_s": split, "idle_by_span_s": idle,
             "loop_idle_ms": S.loop_idle_ms(dict(t, idle_by_span=idle)),
             "loop_spans": loop, "totals": tot, "counters": sp["counters"],
-            "dropped": sp["dropped"]}
+            "derive_fused": derive, "dropped": sp["dropped"]}
 
 
 def main(argv=None) -> int:
