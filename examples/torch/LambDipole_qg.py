@@ -4,7 +4,7 @@ on the PyTorch port (``niwqg_tpu_torch``; the reference's
 
 Run, on the card or on the host:
   python examples/torch/LambDipole_qg.py
-  python examples/torch/LambDipole_qg.py --device cpu --nx 64
+  python examples/torch/LambDipole_qg.py --device cpu --nx 64 --steps 400
 """
 
 import argparse
@@ -26,6 +26,8 @@ ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 ap.add_argument("--device", default=None,
                 help="'cpu' for the host; default: the first CUDA card")
 ap.add_argument("--nx", type=int, default=128)
+ap.add_argument("--steps", type=int, default=None,
+                help="steps to run; default: the reference's tmax, 300 Te")
 args = ap.parse_args()
 
 # parameters
@@ -37,7 +39,7 @@ U = 1.0e-1
 Te = (U * k0) ** -1
 
 dt = 0.05 * Te
-tmax = 300 * Te
+tmax = 300 * Te if args.steps is None else (args.steps - 0.5) * dt
 
 m = Model.Model(
     L=L, nx=nx, tmax=tmax, dt=dt, twrite=500,
@@ -50,6 +52,7 @@ c = np.real(ic.PlaneWave(m, k=k0, l=k0)) * np.abs(q).max()
 
 m.set_q(q)
 m.set_c(c)
+var0 = np.var(m.c)
 m.run()
 
 time = m.diagnostics["time"]["value"]
@@ -64,3 +67,5 @@ print("tracer variance closure max rel err:",
       np.abs(C2 - cvar).max() / np.abs(C2).max())
 print("variance of c: %.6e by spec_var(ch), %.6e by np.var(c)"
       % (m.spec_var(m.ch), np.var(m.c)))
+print("variance of c: %.6e at the start, %.6e after %d steps"
+      % (var0, np.var(m.c), m.tc))
