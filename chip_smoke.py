@@ -217,7 +217,17 @@ Phases (any failure exits non-zero):
      and 13) are held to DERIVES_PER_STEP a step of each kernel their
      layout uses and set_q's one inversion on the half layout
      (``derive_report``). The records, with the launches of phase 4 and of
-     rank 0 in phase 13, join the result line's ``kernels``.
+     rank 0 in phase 13, join the result line's ``kernels``. The same
+     phase holds the fused stage epilogue (``csrc/stage.cu``,
+     ``niwqg_tpu_torch/ops/stage_fused.py``): in each use ``Fn`` and
+     ``Fnw`` bit for bit the plain chain and the budget partials within
+     STAGE_PART_LIMIT of the float64 total of their terms
+     (``stage_gaps``), timed beside the plain chain and its bound, its
+     launches over STAGE_RUN_STEPS steps with diagnostics (one a stage,
+     one sources-only a sample); phase 13 checks it on every rank of the
+     pencil flagship and times rank 1's (``mesh_stage``); phase 4 and
+     every ``_runs_on_mesh`` run hold its launches to ``stage_use`` a step
+     (``stage_report``).
 
 Every ``run_steps``, ``run`` and ``run_with_snapshots`` above replays
 the step's CUDA graphs (``niwqg_tpu_torch/graphs.py``), on one card, on
@@ -1608,6 +1618,7 @@ def _runs_on_mesh(torch, mesh, runs, after=None):
     from niwqg_tpu_torch import InitialConditions as ic
     from niwqg_tpu_torch.ops import csplit_mm as mm
     from niwqg_tpu_torch.ops import derive_fused as dv
+    from niwqg_tpu_torch.ops import stage_fused as sf
     from niwqg_tpu_torch.parallel import a2a
 
     def launches():
@@ -1621,6 +1632,7 @@ def _runs_on_mesh(torch, mesh, runs, after=None):
         a2a.reset_counts()  # every count to 0 just before the path
         mm.reset_counts()
         dv.reset_counts()
+        sf.reset_counts()
         kw = {k: dict(v) if isinstance(v, dict) else v
               for k, v in run.build.items()}
         t0 = time.perf_counter()
@@ -1628,10 +1640,11 @@ def _runs_on_mesh(torch, mesh, runs, after=None):
                         **{**MESH_GRAPH_RUN, **kw})
         torch.cuda.synchronize()
         out[f"{key}_t_build"] = time.perf_counter() - t0
-        n_set, d_set = launches(), derive_counts()
+        n_set, d_set, s_set = launches(), derive_counts(), stage_counts()
         m.run_steps(WARM_STEPS)
         torch.cuda.synchronize()
         n_warm, d_warm = launches() - n_set, derive_counts() - d_set
+        s_warm = stage_counts() - s_set
         warm = {k: getattr(m, k) for k in fields}  # collectives
         mesh.barrier()
         t0 = time.perf_counter()
@@ -1641,17 +1654,20 @@ def _runs_on_mesh(torch, mesh, runs, after=None):
         out[f"{key}_wall"] = time.perf_counter() - t0
         n_timed = launches() - n_set - n_warm
         d_timed = derive_counts() - d_set - d_warm
+        s_timed = stage_counts() - s_set - s_warm
         end = {k: getattr(m, k) for k in fields}
         out[f"{key}_finite"] = all(np.isfinite(v).all() for v in end.values())
-        n_census, d_census = n_timed * 0, d_timed * 0
+        n_census, d_census, s_census = n_timed * 0, d_timed * 0, s_timed * 0
         if run.census:
             # one eager step with the communication census on (a step of
             # the run: its launches count)
             from niwqg_tpu_torch.utils.census import step_census
 
-            before, d_before = launches(), derive_counts()
+            before, d_before, s_before = (launches(), derive_counts(),
+                                          stage_counts())
             census = step_census(m)
             n_census, d_census = launches() - before, derive_counts() - d_before
+            s_census = stage_counts() - s_before
             del census["transposes"]
             out[f"{key}_census"] = json.dumps(census)
             out[f"{key}_census_ok"] = all(mesh.all_gather_object(
@@ -1680,6 +1696,8 @@ def _runs_on_mesh(torch, mesh, runs, after=None):
         out[f"{key}_derive"] = np.stack([d_set, d_warm, d_timed, d_census])
         out[f"{key}_derive_use"] = derive_use(m.kernel)
         out[f"{key}_derive_set_use"] = derive_set_use(m.kernel)
+        out[f"{key}_stage"] = np.stack([s_set, s_warm, s_timed, s_census])
+        out[f"{key}_stage_use"] = stage_use(m.kernel)
         out.update({
             f"{key}_n_set": n_set, f"{key}_n_warm": n_warm,
             f"{key}_n_timed": n_timed, f"{key}_n_ckpt": n_ckpt,
@@ -2490,6 +2508,8 @@ def mesh_checks(r, run, ref, layout):
         census_report(r, run, want, n["n_census"])
     derive_report(run.label, *get("derive"), get("derive_use"),
                   get("derive_set_use"), census=run.census)
+    stage_report(run.label, *get("stage"), int(get("stage_use")),
+                 census=run.census)
     if ref is not None:
         d = {k: float(np.abs(np.asarray(get(k)) - v).max()
                       / np.abs(v).max()) for k, v in ref.items()}
@@ -2889,8 +2909,9 @@ def _big_mesh_rank(rank, port, outdir):
     runs = BIG_MESH_RUNS + (BIG_DEFAULT_RUNS if mesh.backend == "nccl"
                             else ())
     out = _runs_on_mesh(torch, mesh, runs, after={
-        "big_flagship": lambda group, m: mesh_derive(torch, mesh, m,
-                                                     "big_flagship"),
+        "big_flagship": lambda group, m: {
+            **mesh_derive(torch, mesh, m, "big_flagship"),
+            **mesh_stage(torch, mesh, m, "big_flagship")},
         "big_qg": lambda group, m: _big_k2(torch, mesh, rank, group)})
     rss = max(mesh.all_gather_object(host_peak_gb()))
     if rank == 0:
@@ -2952,6 +2973,14 @@ def big_mesh_phase(torch, refs):
         recs=json.loads(str(r["big_flagship_derive_recs"])),
         launches=np.sum([r[f"{run.key}_derive"] for run in runs],
                         axis=(0, 1))[:4])}
+    gaps = json.loads(str(r["big_flagship_stage_gaps"]))
+    stage_held(gaps, f"phase 13: the fused stage epilogue on every rank of "
+               f"the pencil flagship at {NX_BIG}² (the worst of each "
+               "reading over the ranks)")
+    recs["stage"] = dict(
+        recs=json.loads(str(r["big_flagship_stage_recs"])),
+        launches=int(sum(np.asarray(r[f"{run.key}_stage"])[:, :2].sum()
+                         for run in runs)))
     for name, shape in (("big", K2_BIG), ("big_qg", QG_K2_BIG)):
         nbytes = int(np.prod(shape)) * 8
         bound, t_hbm, t_link = k2_bound_ms(nbytes, ncards)
@@ -3124,14 +3153,184 @@ def derive_gaps(torch, K, seed):
     return gaps
 
 
+# the budget partials' limit in stage_gaps' units (the working type's
+# epsilon times the sum of a sum's terms' magnitudes over M²): the float64
+# total of the plain chain's own terms, rounded once, reads at most 0.5
+STAGE_PART_LIMIT = 2.0
+# phase 14: the bytes the fused stage epilogue must move, in complex values
+# of the working type an element of each side, read once and written once:
+# the wave side phih, Jh, Rh, three real tables and Fnw; the q side the two
+# products' spectra, qh, ph, a real table and Fn
+STAGE_VALUES = {"wave": 3 + 1.5 + 1, "q": 2 + 2 + 0.5 + 1}
+# phase 14: steps of the flagship with diagnostics, for the launches
+STAGE_RUN_STEPS = 20
+STAGE_PARTS = ("ep_phi", "chi_phi", "ep_psi", "gamma1", "gamma2", "xi1",
+               "xi2", "phih00_re", "phih00_im", "rh00_re", "rh00_im")
+
+
+def stage_use(K) -> int:
+    """The fused stage epilogue's launches with right-hand sides in one
+    step of the kernel object ``K``: one an ETDRK4 stage, two where QL
+    re-evaluates the wave right-hand side on the updated ``qh``; none
+    where the model has no fast kernel."""
+    if getattr(K, "_stage_plan", None) is None:
+        return 0
+    return 4 * (2 if K.physics.jac_reads_updated_qh else 1)
+
+
+def stage_counts() -> np.ndarray:
+    """The fused stage epilogue's launches on this process's cards so far:
+    with right-hand sides, sources alone, then its plain-chain calls."""
+    from niwqg_tpu_torch.ops import stage_fused as sf
+
+    c = sf.counts()
+    return np.array([c[k] for k in sf.USES + ("cpu_calls",)],
+                    dtype=np.int64)
+
+
+def stage_report(label, s_set, s_warm, s_timed, s_census, use, census=False):
+    """Hold a run's fused stage epilogue launches (``stage_counts``
+    arrays): ``use`` a step with right-hand sides, none at set-up, no
+    sources alone (``run_steps`` samples no diagnostics), no plain chain
+    on the card. Returns the launches in all."""
+    s_set, s_warm, s_timed, s_census = (
+        np.asarray(x, dtype=np.int64)
+        for x in (s_set, s_warm, s_timed, s_census))
+    log(f"  fused stage epilogue launches (with RHS, sources alone; counted "
+        f"on the card): set-up {s_set[:2].tolist()}, {WARM_STEPS} warm-up "
+        f"steps {s_warm[:2].tolist()}, {TIMED_STEPS} timed "
+        f"{s_timed[:2].tolist()}"
+        + (f", census step {s_census[:2].tolist()}" if census else "")
+        + f"; {use} a step expected")
+    check(int(sum(x[2] for x in (s_set, s_warm, s_timed, s_census))) == 0,
+          f"{label}: a stage epilogue on the card took the plain chain")
+    for what, got, steps in (("set-up", s_set, 0),
+                             ("warm-up", s_warm, WARM_STEPS),
+                             ("timed", s_timed, TIMED_STEPS),
+                             ("census", s_census, int(census))):
+        check(got[:2].tolist() == [use * steps, 0],
+              f"{label}: the fused stage epilogue launched "
+              f"{got[:2].tolist()} in {steps} {what} steps, not "
+              f"[{use * steps}, 0]")
+    return int(sum(x[:2].sum() for x in (s_set, s_warm, s_timed, s_census)))
+
+
+def stage_gaps(torch, K, seed):
+    """The fused stage epilogue against the plain chain of the kernel
+    object ``K`` on the same CUDA tensors, in each of its uses (``rhs``:
+    the right-hand sides alone; with spectral budgets also ``stage``, both,
+    and ``sources``, the partials alone): ``{what: gap}``. ``Fn`` and
+    ``Fnw`` in ulps (0: bit for bit); ``again.*``, a second launch against
+    the first (0: bit for bit); each budget partial (``part.*``) in units
+    of the working type's epsilon times the sum of its terms' magnitudes
+    over M², against the float64 total of the plain chain's own terms (the
+    mean modes against the plain chain, 0: bit for bit); ``plain.*``, the
+    plain chain's own sums so measured (reported, not held). On a mesh
+    every rank calls it (the transforms are collectives)."""
+    qh, phih = derive_inputs(torch, K, seed)
+    D = K.derive(qh, phih, plain=True)
+    jadv, refrh, jh = K._wave_products(qh, D)
+    uvqh = K._q_products(D)
+    uses = {"rhs": dict(jadv=jadv, uvqh=uvqh, sources=False)}
+    terms = None
+    if K._spectral_src:
+        uses["stage"] = dict(jadv=jadv, uvqh=uvqh, jh=jh)
+        uses["sources"] = dict(jh=jh)
+        ph = D.ph if K.physics.hermitian_ph else K._project_ph(D.ph)
+        terms = list(K._source_terms(qh, phih, ph, refrh, jh))
+    eps = torch.finfo(K.rdtype).eps
+    m2 = 1.0 / float(K.grid.M) ** 2
+    gaps = {}
+    for use, kw in uses.items():
+        got = K._epilogue(qh, phih, D, refrh, plain=False, **kw)
+        again = K._epilogue(qh, phih, D, refrh, plain=False, **kw)
+        want = K._epilogue(qh, phih, D, refrh, plain=True, **kw)
+        for what, a, b, c in zip(("Fn", "Fnw", "parts"), got, again, want):
+            if c is None:
+                continue
+            gaps[f"{use}.again.{what}"] = 0.0 if torch.equal(a, b) else 1.0
+            if what != "parts":
+                gaps[f"{use}.{what}"] = ulps(torch, a, c)
+                continue
+            for j, name in enumerate(STAGE_PARTS):
+                if j >= len(terms):  # a mean-mode entry: the chain's bits
+                    gaps[f"{use}.part.{name}"] = (
+                        0.0 if torch.equal(a[j], c[j]) else float("inf"))
+                    continue
+                t = terms[j].double()
+                ref, scale = t.sum().item() * m2, t.abs().sum().item() * m2
+                for key, v in ((f"{use}.part.{name}", a[j]),
+                               (f"plain.{use}.part.{name}", c[j])):
+                    err = abs(float(v) - ref)
+                    gaps[key] = err / (eps * scale) if scale else err
+    return gaps
+
+
+def stage_inputs(torch, K, seed):
+    """A stage's epilogue inputs from random spectra: ``(qh, phih, D,
+    refrh, kw)``, ``kw`` the transforms' outputs ``_epilogue`` takes with
+    the right-hand sides and the partials (on a mesh every rank calls it:
+    the transforms are collectives)."""
+    qh, phih = derive_inputs(torch, K, seed)
+    D = K.derive(qh, phih, plain=True)
+    jadv, refrh, jh = K._wave_products(qh, D)
+    return qh, phih, D, refrh, dict(jadv=jadv, uvqh=K._q_products(D), jh=jh)
+
+
+def stage_record(torch, K, layout, inputs, reps=DERIVE_REPS):
+    """The fused stage epilogue of ``K`` on ``inputs`` (``stage_inputs``)
+    with its partials (a stage with budgets), ``reps`` launches queued
+    behind a sleep (``k2_times``), beside its bound (STAGE_VALUES of
+    complex values an element at PEAK_BYTES) and the plain chain on the
+    same tensors."""
+    qh, phih, D, refrh, kw = inputs
+    card = [qh.device]
+    ms, us, _ = k2_times(torch, lambda: K._epilogue(
+        qh, phih, D, refrh, plain=False, **kw), card, reps)
+    pms = k2_times(torch, lambda: K._epilogue(
+        qh, phih, D, refrh, plain=True, **kw), card, reps)[0]
+    size = qh.element_size() // 8  # complex64: 1, complex128: 2
+    nbytes = 8 * size * (STAGE_VALUES["wave"] * phih.numel()
+                         + STAGE_VALUES["q"] * qh.numel())
+    bound = nbytes / PEAK_BYTES * 1e3
+    log(f"  stage_epilogue {layout} wave {tuple(phih.shape)}, q "
+        f"{tuple(qh.shape)}: {ms:.4f} ms (bound {bound:.4f}, "
+        f"{100 * bound / ms:.1f}%; {nbytes / 1e6:.1f} MB; host {us:.1f} µs "
+        f"a call), plain chain {pms:.4f} ms")
+    return dict(layout=layout, shape=[list(phih.shape), list(qh.shape)],
+                ms=round(ms, 4), bound_ms=round(bound, 4),
+                plain_ms=round(pms, 4))
+
+
+def stage_held(gaps, label):
+    """Check ``stage_gaps``' readings: Fn, Fnw and a second launch bit for
+    bit, each partial within STAGE_PART_LIMIT."""
+    held = {k: v for k, v in gaps.items() if not k.startswith("plain.")}
+    worst = max((v for k, v in held.items() if ".part." in k), default=0.0)
+    exact = {k: v for k, v in held.items() if ".part." not in k}
+    plain = max((v for k, v in gaps.items() if k.startswith("plain.")),
+                default=0.0)
+    log(f"  {label}: Fn, Fnw largest gap {max(exact.values()):g} ulps, "
+        f"partials {worst:.3f} (limit {STAGE_PART_LIMIT}; the plain chain's "
+        f"own sums {plain:.3f}), {len(held)} readings")
+    check(not any(exact.values()), f"{label}: the fused stage epilogue is "
+          f"not bitwise its plain chain: "
+          f"{ {k: v for k, v in exact.items() if v} }")
+    check(worst <= STAGE_PART_LIMIT, f"{label}: a budget partial is "
+          f"{worst:.3f} from the float64 total of its terms")
+    return worst
+
+
 def derive_phase(torch):
-    """Phase 14: the fused derive's kernels on the flagship's half layout
-    at NX² on one card, held bitwise to the plain chain and timed beside it
-    and their bound. (A rank's block of the NX_BIG² pencil mesh: phase 13,
-    ``mesh_derive``.)"""
+    """Phase 14: the fused derive's kernels and the fused stage epilogue on
+    the flagship's half layout at NX² on one card, held to the plain chain
+    (``derive_gaps``, ``stage_gaps``) and timed beside it and their bounds;
+    the epilogue's launches in steps with diagnostics. (A rank's block of
+    the NX_BIG² pencil mesh: phase 13, ``mesh_derive``, ``mesh_stage``.)"""
     from niwqg_tpu_torch import CoupledModel
     from niwqg_tpu_torch import InitialConditions as ic
     from niwqg_tpu_torch.ops import derive_fused as dv
+    from niwqg_tpu_torch.ops import stage_fused as sf
 
     recs = {k: [] for k in dv.KERNELS}
     m = flagship(CoupledModel, ic, fast=True, backend="native",
@@ -3168,7 +3367,36 @@ def derive_phase(torch):
     log(f"  the whole derive, transforms included: {whole:.4f} ms fused, "
         f"{whole_p:.4f} ms plain ({4 * (whole_p - whole):.3f} ms a step "
         "saved at 4 a step)")
-    del m, K, pg, fj
+    del pg, fj
+    # the fused stage epilogue on the same half layout: every use bitwise
+    # (the partials within their limit), timed beside its bound and the
+    # plain chain; then its launches in steps with diagnostics
+    stage_held(stage_gaps(torch, K, seed=15), f"phase 14: the fused stage "
+               f"epilogue at {NX}² (q_half={K.q_half})")
+    inputs = stage_inputs(torch, K, 16)
+    recs["stage_epilogue"] = [stage_record(torch, K, "one card", inputs)]
+    qh_, phih_, D_, refrh_, kw_ = inputs
+    whole = k2_times(torch, lambda: K.stage_terms(qh_, phih_, D_, True),
+                     card, DERIVE_REPS)[0]
+    whole_p = k2_times(torch, lambda: K.stage_terms(qh_, phih_, D_, True,
+                                                    plain=True),
+                       card, DERIVE_REPS)[0]
+    log(f"  a stage's terms, transforms included: {whole:.4f} ms fused, "
+        f"{whole_p:.4f} ms plain ({4 * (whole_p - whole):.3f} ms a step "
+        "saved at 4 a step)")
+    del inputs, qh_, phih_, D_, refrh_, kw_
+    sf.reset_counts()
+    tc0, n = m.state.tc, STAGE_RUN_STEPS
+    samples = sum((tc0 + i) % m.params.tdiags == 0 for i in range(n))
+    m._runner.advance(n, diags=True)
+    got = stage_counts()
+    log(f"  {n} steps with {samples} diagnostics samples (graphs "
+        f"{m._runner.graphs}): stage epilogue launches {got.tolist()} "
+        f"(with RHS, sources alone, plain chain)")
+    check(got.tolist() == [stage_use(K) * n, samples, 0], "phase 14: the "
+          f"fused stage epilogue launched {got.tolist()}, not "
+          f"[{stage_use(K) * n}, {samples}, 0]")
+    del m, K
     torch.cuda.empty_cache()
     return recs
 
@@ -3254,6 +3482,29 @@ def mesh_derive(torch, mesh, m, key, seed=13):
             f"{key}_derive_recs": json.dumps(every[1])}
 
 
+def mesh_stage(torch, mesh, m, key, seed=17):
+    """Phase 13 on a pencil mesh rank of the NX_BIG² flagship (every rank
+    calls it): the fused stage epilogue against its plain chain on every
+    rank (``stage_gaps``, each reading's worst over the ranks); then rank
+    1's kernel alone timed while the others wait (``stage_record``: its
+    fields in the layouts the transforms hand over). Returns rank 0's
+    entries, prefixed by ``key``: ``stage_gaps`` and ``stage_recs`` (JSON)."""
+    K = m.kernel
+    gaps = stage_gaps(torch, K, seed)
+    every = mesh.all_gather_object(gaps)
+    worst = {k: max(g[k] for g in every) for k in gaps}
+    inputs = stage_inputs(torch, K, seed + 1)  # every rank: collectives
+    recs = []
+    mesh.barrier()
+    if mesh.rank == 1:
+        recs.append(stage_record(torch, K, f"mesh rank 1 of {mesh.nP}",
+                                 inputs))
+    mesh.barrier()
+    every = mesh.all_gather_object(recs)
+    return {f"{key}_stage_gaps": json.dumps(worst),
+            f"{key}_stage_recs": json.dumps(every[1])}
+
+
 def family_refs(torch):
     """The one-card f32 cuFFT runs phase 7's QG, UnCoupled, QL and YBJ are
     held to: their fields after WARM_STEPS steps (UnCoupled and QL with
@@ -3318,6 +3569,7 @@ def run_phases(torch, phases, full) -> int:
     from niwqg_tpu_torch.device import full_fp32_matmul
     from niwqg_tpu_torch.ops import csplit_mm as mm
     from niwqg_tpu_torch.ops import derive_fused as dv
+    from niwqg_tpu_torch.ops import stage_fused as sf
     from niwqg_tpu_torch.parallel import a2a
 
     laps, t_lap = [], time.perf_counter()
@@ -3392,6 +3644,7 @@ def run_phases(torch, phases, full) -> int:
     torch.cuda.reset_peak_memory_stats()
     mm.reset_counts()
     dv.reset_counts()
+    sf.reset_counts()
     t0 = time.perf_counter()
     m = flagship(CoupledModel, ic, **K1_MODEL, **GRAPH_RUN)
     torch.cuda.synchronize()
@@ -3399,8 +3652,10 @@ def run_phases(torch, phases, full) -> int:
         f"{time.perf_counter() - t0:.1f} s ({type(m.kernel).__name__}, "
         f"q_half={m.kernel.q_half})")
     n_set, d_set = mm.counts()["launches"], derive_counts()
+    s_set = stage_counts()
     m.run_steps(WARM_STEPS)
     n_warm, d_warm = mm.counts()["launches"] - n_set, derive_counts() - d_set
+    s_warm = stage_counts() - s_set
     q32, phi32, ke32 = m.q, m.phi, m.Ke
     t0 = time.perf_counter()
     m.run_steps(TIMED_STEPS)
@@ -3412,6 +3667,7 @@ def run_phases(torch, phases, full) -> int:
     launches = count["launches"]
     n_timed = launches - n_set - n_warm
     d_timed = derive_counts() - d_set - d_warm
+    s_timed = stage_counts() - s_set - s_warm
     log(f"main path: {TIMED_STEPS} steps in {wall:.3f} s = "
         f"{TIMED_STEPS / wall:.3f} steps/s ({1e3 * wall / TIMED_STEPS:.1f} "
         f"ms/step); K1 launches: set_q/set_phi {n_set}, warm-up {n_warm}, "
@@ -3419,6 +3675,8 @@ def run_phases(torch, phases, full) -> int:
     derive_main = derive_report("the main path", d_set, d_warm, d_timed,
                                 d_timed * 0, derive_use(m.kernel),
                                 derive_set_use(m.kernel))
+    stage_main = stage_report("the main path", s_set, s_warm, s_timed,
+                              s_timed * 0, stage_use(m.kernel))
     check(count["cpu_calls"] == 0, "K1 ran its plain version")
     check(n_warm == K1_PER_STEP * WARM_STEPS
           and n_timed == K1_PER_STEP * TIMED_STEPS,
@@ -3541,6 +3799,7 @@ def run_phases(torch, phases, full) -> int:
     lap("13 (one card)")
     launches13, k2_big = big_mesh_phase(torch, big_refs)
     derive_mesh = k2_big.pop("derive")
+    stage_mesh = k2_big.pop("stage")
     for name, n in zip(K2_RECORDS, launches13[:2] + launches13[3:]):
         k2_recs[name]["launches"] += n
     rec["launches"] += launches13[2]  # (k)'s, rank 0
@@ -3549,6 +3808,7 @@ def run_phases(torch, phases, full) -> int:
 
     # -- 14. the fused derive ------------------------------------------------
     derive_recs = derive_phase(torch)
+    stage_recs = derive_recs.pop("stage_epilogue") + stage_mesh["recs"]
     for name, shapes in derive_mesh["recs"].items():
         derive_recs[name] += shapes
     lap("14")
@@ -3595,6 +3855,13 @@ def run_phases(torch, phases, full) -> int:
                             replaces=None,
                             launches=int(derive_launches[i]),
                             shapes=shapes))
+    # the fused stage epilogue: its launches on the main path and on rank 0
+    # of phase 13's mesh runs
+    kernels.append(dict(name="stage_epilogue", route="cuda",
+                        source="niwqg_tpu_torch/csrc/stage.cu",
+                        replaces=None,
+                        launches=stage_main + stage_mesh["launches"],
+                        shapes=stage_recs))
     log(f"the sharded phases ran {NRANKS} ranks on {ncards} card(s)"
         + ("" if ncards == NRANKS else ": their times were taken with "
            "ranks sharing a card and are not multi-card times"))

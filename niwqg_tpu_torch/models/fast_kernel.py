@@ -24,7 +24,11 @@ Same ETDRK4 stage structure, budget integration and physics as
   - ``derive`` is three transforms with one hand-written CUDA kernel in
     each gap between them on the card (``ops/derive_fused.py``,
     ``csrc/derive.cu``), each writing the batch the next transform takes;
-    the plain chain on host tensors.
+    the plain chain on host tensors;
+  - a stage's epilogue, from its forward transforms to its ETDRK4 update
+    (the right-hand sides and the Parseval budget sums), is one
+    hand-written CUDA kernel on the card (``ops/stage_fused.py``,
+    ``csrc/stage.cu``), the plain chain on host tensors.
 
 On a mesh tables are this rank's columns, and the masks of the mean mode
 and of the self-mirror columns ``k = 0, nx/2`` come from the global column
@@ -44,7 +48,7 @@ import numpy as np
 import torch
 
 from ..etdrk4 import fold_filter_into
-from ..ops import derive_fused, spectral
+from ..ops import derive_fused, spectral, stage_fused
 from ..ops.derive_fused import Plan
 from ..ops.spectral import abs2, jmul, mul_i
 from ..parallel.mesh import reflect_spectrum
@@ -170,8 +174,10 @@ class FastWaveKernel(WaveKernel):
         # what the derive's kernels read (ops/derive_fused.py); the card's
         # launch counters are made here, outside any capture
         self._plan = self._derive_plan()
+        self._stage_plan = self._epilogue_plan()
         if self.device.type == "cuda":
             derive_fused.launch_counter(self.device)
+            stage_fused.launch_counter(self.device)
 
     def _q_layout(self):
         """Resolve ``q_half`` now that the transform is known; the q side's
@@ -354,6 +360,24 @@ class FastWaveKernel(WaveKernel):
                         for s in derive_fused.SLOTS),
             inv_f=inv_f)
 
+    def _epilogue_plan(self) -> stage_fused.Plan:
+        """The layout and physics as the stage epilogue's kernel reads
+        them: the weight tables, and the q side's numbers of the derive's
+        plan (``_l_dy`` is its ``l`` cut by ``nyq`` and ``nreal``)."""
+        g, a = self.grid, self._plan
+        rd = np.float64 if self.rdtype == torch.float64 else np.float32
+        ws = (stage_fused.workspace(self.device)
+              if self.device.type == "cuda" else (None, None, 0))
+        return stage_fused.Plan(
+            w_d=self._w_d.contiguous(), w_chi=self._w_chi.contiguous(),
+            wv2=g.wv2.contiguous(), w_eppsi=self._w_eppsi.contiguous(),
+            kq=a.kq, lq=a.l, col0=a.col0, nx=a.nx, nreal=a.nreal, nyq=a.nyq,
+            zero_jac=bool(self.physics.zero_mean_jac_psi_phi),
+            owner=g.owns_mean_mode,
+            inv_m=float(rd(1.0 / float(g.M))),
+            inv_m2=float(rd(1.0 / float(g.M) ** 2)), partials=ws[0],
+            arrivals=ws[1], blocks=ws[2])
+
     def _inv_prepare(self, z):
         """What a stack of q-side spectra needs before ``_inv_packed``.
         irfft2 projects only the k-direction residue; the half layout folds
@@ -412,9 +436,41 @@ class FastWaveKernel(WaveKernel):
         nlc = self.tr.fft2(torch.stack([j_adv, refr, j_full]))
         return nlc[0], nlc[1], nlc[2]
 
-    def _rhs_from_products(self, D: Derived, jacwh_raw, refrh_raw):
+    def _q_products(self, D: Derived):
+        """Forward real transforms of the q side's products
+        ``[u q, v q]``."""
+        return self._fwd_real(torch.stack([D.u * D.q, D.v * D.q]))
+
+    def _epilogue(self, qh, phih, D: Derived, refrh, jadv=None, uvqh=None,
+                  jh=None, sources=True, plain=None):
+        """A stage's gap from its forward transforms to its update:
+        ``(Fn, Fnw, parts)``, the right-hand sides where ``uvqh`` (and
+        ``jadv``) are given, this rank's budget partials where ``sources``.
+        On the card one kernel of ``ops/stage_fused.py``; on host tensors
+        the plain chain (``plain``, by default, is whether the tensors are
+        the host's; ``plain=True`` on the card is the oracle the kernel is
+        held to)."""
+        rhs = uvqh is not None
+        if plain is None:
+            plain = refrh.device.type == "cpu"
+        ph = D.ph if sources else None
+        if sources and not self.physics.hermitian_ph:
+            ph = self._project_ph(ph)  # the kernel reads the projected ph
+        if refrh.device.type == "cpu":
+            stage_fused.count_host_call()
+        elif not plain:
+            count("step.stage_fused")
+            return stage_fused.epilogue(
+                self._stage_plan, refrh, jadv=jadv, jh=jh, phih=phih,
+                uvqh=uvqh, qh=qh, ph=ph, rhs=rhs, sources=sources)
+        Fn, Fnw = self._rhs_plain(uvqh, jadv, refrh) if rhs else (None, None)
+        parts = (self._sources_plain(qh, phih, ph, refrh, jh) if sources
+                 else None)
+        return Fn, Fnw, parts
+
+    def _rhs_plain(self, uvqh, jacwh_raw, refrh_raw):
+        """``(Fn, Fnw)`` from the products' transforms: the plain chain."""
         qt = self.qtab
-        uvqh = self._fwd_real(torch.stack([D.u * D.q, D.v * D.q]))
         own = self.grid.owns_mean_mode
         jacq = spectral.zero_mean_mode(mul_i(uvqh[0], qt.k)
                                        + mul_i(uvqh[1], self._l_dy), own)
@@ -423,20 +479,22 @@ class FastWaveKernel(WaveKernel):
             jacwh = spectral.zero_mean_mode(jacwh, own)
         return -jacq, -jacwh - jmul(refrh_raw, 0.5)
 
-    def stage_terms(self, qh, phih, D: Derived, want_sources: bool):
+    def stage_terms(self, qh, phih, D: Derived, want_sources: bool,
+                    plain=None):
         jadv, refrh, jh = self._wave_products(qh, D)
-        Fn, Fnw = self._rhs_from_products(D, jadv, refrh)
-        if not want_sources:
-            parts = None
-        elif self._spectral_src:
-            parts = self._spectral_source_parts(qh, phih, D, refrh, jh)
-        else:
+        spectral_src = want_sources and self._spectral_src
+        Fn, Fnw, parts = self._epilogue(qh, phih, D, refrh, jadv,
+                                        self._q_products(D), jh,
+                                        spectral_src, plain)
+        if want_sources and not spectral_src:
             parts = self._batched_source_parts(qh, phih, D)
         return Fn, Fnw, parts
 
     def nonlinear(self, qh, D: Derived):
         jadv, refrh, _ = self._wave_products(qh, D)
-        return self._rhs_from_products(D, jadv, refrh)
+        Fn, Fnw, _ = self._epilogue(qh, None, D, refrh, jadv,
+                                    self._q_products(D), sources=False)
+        return Fn, Fnw
 
     # ------------------------------------------------------------------
     # budget sources
@@ -445,7 +503,7 @@ class FastWaveKernel(WaveKernel):
         """Standalone source evaluation (diagnostics cadence)."""
         if self._spectral_src:
             _, refrh, jh = self._wave_products(qh, D)
-            return self._spectral_source_parts(qh, phih, D, refrh, jh)
+            return self._epilogue(qh, phih, D, refrh, jh=jh)[2]
         return self._batched_source_parts(qh, phih, D)
 
     def sources_from_parts(self, m: torch.Tensor) -> StageSources:
@@ -467,11 +525,11 @@ class FastWaveKernel(WaveKernel):
         return StageSources(k_src, p_src, a_src, gamma1, gamma2, xi1, xi2, pi,
                             ep_psi, chi_phi, ep_phi)
 
-    def _spectral_source_parts(self, qh, phih, D: Derived, refrh_raw,
-                               jh_full) -> torch.Tensor:
+    def _sources_plain(self, qh, phih, ph, refrh_raw,
+                       jh_full) -> torch.Tensor:
         """This rank's partial sums of the Parseval evaluation of the
         physical-space budget means (:meth:`sources_from_parts` finishes
-        them). With
+        them), ``ph`` projected: the plain chain. With
         ``Rh = fft(phi*q_psi)``, ``Jh = fft(phix*u + phiy*v)``,
         ``lapphi_h = -wv2*phih`` and ``diss_phi_h = w_d*phih``:
 
@@ -487,34 +545,33 @@ class FastWaveKernel(WaveKernel):
         zeroing and the refraction's ``0.5j``. ``pi`` needs the (0,0)
         coefficients, which only the owner of column 0 holds: it
         contributes them (over M) and the others contribute zeros."""
-        g = self.grid
         M2 = self._inv_M2
+        sums = [t.sum() * M2
+                for t in self._source_terms(qh, phih, ph, refrh_raw, jh_full)]
+        if self.grid.owns_mean_mode:
+            M1 = self._inv_M
+            mean_modes = [phih.real[0, 0] * M1, phih.imag[0, 0] * M1,
+                          refrh_raw.real[0, 0] * M1, refrh_raw.imag[0, 0] * M1]
+        else:
+            mean_modes = [self._zero] * 4
+        return torch.stack(sums + mean_modes)
 
+    def _source_terms(self, qh, phih, ph, refrh_raw, jh_full):
+        """The terms of :meth:`_sources_plain`'s seven sums, one field a
+        sum in turn, as the plain chain forms them (its kernel adds the
+        same terms)."""
         aphi2 = abs2(phih)
-        ep_phi = (self._w_d * aphi2).sum() * M2
-        chi_phi = (self._w_chi * aphi2).sum() * M2
-
-        ph = D.ph
-        if not self.physics.hermitian_ph:
-            ph = self._project_ph(ph)
-        rqp = qh.real * ph.real + qh.imag * ph.imag  # Re(conj(qh)*ph)
-        ep_psi = (self._w_eppsi * rqp).sum() * M2
-
+        yield self._w_d * aphi2
+        yield self._w_chi * aphi2
+        yield self._w_eppsi * (qh.real * ph.real + qh.imag * ph.imag)
         pr, pim = phih.real, phih.imag
         rr, ri = refrh_raw.real, refrh_raw.imag
         jr, ji = jh_full.real, jh_full.imag
-        g1 = M2 * ((-g.wv2) * (rr * pim - ri * pr)).sum()
-        g2 = M2 * ((-g.wv2) * (pr * jr + pim * ji)).sum()
-        x1 = M2 * (self._w_d * (pim * jr - pr * ji)).sum()
-        x2 = M2 * (self._w_d * (pr * rr + pim * ri)).sum()
-        if g.owns_mean_mode:
-            M1 = self._inv_M
-            mean_modes = [pr[0, 0] * M1, pim[0, 0] * M1, rr[0, 0] * M1,
-                          ri[0, 0] * M1]
-        else:
-            mean_modes = [self._zero] * 4
-        return torch.stack([ep_phi, chi_phi, ep_psi, g1, g2, x1, x2]
-                           + mean_modes)
+        mw2 = -self.grid.wv2
+        yield mw2 * (rr * pim - ri * pr)
+        yield mw2 * (pr * jr + pim * ji)
+        yield self._w_d * (pim * jr - pr * ji)
+        yield self._w_d * (pr * rr + pim * ri)
 
     def _batched_source_parts(self, qh, phih, D: Derived) -> torch.Tensor:
         """Physical-space sources with batched transforms

@@ -20,7 +20,8 @@ calls in one step of each kind, A and B, of ``chip_smoke.py``'s mesh
 configurations; no host value in a default-route step), ``derive_card``
 (on the card, ranks sharing it: the fused derive's kernels against its
 plain chain on the pencil mesh, K2's route and the default one, and on the
-matmul-DFT's mesh; every rank's gaps gathered to rank 0).
+matmul-DFT's mesh; every rank's gaps gathered to rank 0), ``stage_card``
+(the same for the fused stage epilogue, ``chip_smoke.stage_gaps``).
 """
 
 import os
@@ -728,6 +729,38 @@ def suite_derive_card(mesh):
     return res
 
 
+def suite_stage_card(mesh):
+    import torch.distributed as dist
+
+    from chip_smoke import stage_gaps
+    from niwqg_tpu_torch.ops import stage_fused
+
+    import niwqg_tpu_torch as pkg
+
+    runs = {"coupled_k2": ("CoupledModel", K2_OPTS, "native"),
+            "coupled_default": ("CoupledModel", DEFAULT_OPTS, "native"),
+            "ql_k2": ("QLModel", K2_OPTS, "native"),
+            "uncoupled_quirks_default": ("UnCoupledModel", DEFAULT_OPTS,
+                                         "native"),
+            "coupled_mxu_k2": ("CoupledModel", K2_OPTS, "mxu")}
+    gaps = {}
+    stage_fused.reset_counts()
+    for key, (mod, opts, backend) in runs.items():
+        kw = {"faithful_quirks": True} if mod == "UnCoupledModel" else {}
+        m = getattr(pkg, mod).Model(nx=256, dtype=np.float32, fast=True,
+                                    mesh=mesh, backend=backend,
+                                    transform_opts=dict(opts), **kw)
+        for what, v in stage_gaps(torch, m.kernel, seed=SEED).items():
+            gaps[f"gap_{mesh.rank}_{key}_{what}"] = v
+        del m
+    every = [None] * mesh.nP
+    dist.all_gather_object(every, gaps)
+    res = {k: v for g in every for k, v in g.items()}
+    c = stage_fused.counts()
+    res["launches_stage"], res["launches_sources"] = c["stage"], c["sources"]
+    return res
+
+
 def main():
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -735,7 +768,7 @@ def main():
         bare_warned = [str(w.message) for w in caught
                        if "niwqg" in str(w.filename)]
     assert not torch.distributed.is_initialized()
-    device = "cuda" if suite == "derive_card" else "cpu"
+    device = "cuda" if suite in ("derive_card", "stage_card") else "cpu"
     multihost.initialize(f"localhost:{port}", nranks, rank, device=device,
                          timeout_s=180)
     mesh = multihost.global_mesh(device=None if device == "cuda" else "cpu")
@@ -743,7 +776,8 @@ def main():
     res = {"pfft": suite_pfft, "model": suite_model,
            "misc": suite_misc, "family": suite_family,
            "mxu": suite_mxu, "mesh_graph": suite_mesh_graph,
-           "derive_card": suite_derive_card}[suite](mesh)
+           "derive_card": suite_derive_card,
+           "stage_card": suite_stage_card}[suite](mesh)
     res["bare_warnings"] = len(bare_warned)
     res["out_path"] = out
     if rank == 0:
