@@ -1535,7 +1535,8 @@ def _sharded_rank(rank, port, route, outdir):
         li = lambda: dist.all_to_all_single(recv, sendi)
         lib_inv_ms = timed(li)
         lib_inv_dev = k2_times(torch, li, cards, K2_PAIRS, mesh.barrier)
-    cpu_calls = fwd.cpu_calls + inv.cpu_calls
+    cpu_calls = (a2a.FAMILY.plain_calls("fwd")
+                 + a2a.FAMILY.plain_calls("inv"))
     if tr._group is not None:
         tr._group.close()
     del m, tr
@@ -3042,7 +3043,7 @@ def derive_use(K) -> np.ndarray:
     if plan is None:
         return np.zeros(len(dv.KERNELS), dtype=np.int64)
     return np.array([1, int(bool(plan.flags & dv.WAVE_PV)), 1,
-                     int(plan.proj == dv.PROJ_RAW)], dtype=np.int64)
+                     int(plan.q.proj == dv.PROJ_RAW)], dtype=np.int64)
 
 
 def derive_counts() -> np.ndarray:

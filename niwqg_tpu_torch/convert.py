@@ -101,7 +101,7 @@ def state_from_numpy(kernel, s):
             if z.shape[-1] == nx:
                 z = project_full_to_half(z)
             # either half width in, the kernel's (padded on a mesh) out
-            z = torch.nn.functional.pad(z[..., :nk_half], (0, kernel._qpad))
+            z = torch.nn.functional.pad(z[..., :nk_half], (0, kernel.layout.pad))
         elif q_side and not half and z.shape[-1] != nx:
             z = expand_half_to_full(z[..., :nk_half])
         return z

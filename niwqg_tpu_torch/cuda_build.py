@@ -9,6 +9,13 @@ source with :func:`build_all`.
 
 ``nvcc`` is looked up as ``$NVCC``, then on ``PATH``, then under
 ``$CUDA_HOME`` (default ``/usr/local/cuda``).
+
+A module that launches the kernels of a source declares it once as a
+:class:`Family`: the library, its C signatures, the names of its launch
+counters and of its plain versions. The family binds the signatures,
+keeps the counters on each card, launches on the current stream and
+raises on a refused launch, and counts the calls its plain versions
+serve on the host.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+import torch
 
 from .utils.profiling import count, span
 
@@ -103,3 +112,101 @@ def load(name: str, defines=()) -> ctypes.CDLL:
             lib = ctypes.CDLL(build_all([name], defines)[name])
         _loaded[key] = lib
     return lib
+
+
+class Family:
+    """The kernels of ``csrc/<name>.cu``, as their module declares them.
+
+    ``signatures`` maps each C function the module calls to its argument
+    types (each returns an ``int``, a CUDA error code for a launch); the
+    source's ``error`` function turns a code into its message. ``keys``
+    name the launch counters: int64 in device memory, one set a card, made
+    by the card's first call (outside a capture: a tensor made there would
+    live in the graph's pool). A kernel adds one to its counter as it runs
+    (thread 0 of one block), so a launch replayed from a CUDA graph counts
+    as one from the host does, and a capture, which runs nothing, counts
+    none. ``plain`` name the plain versions, whose calls on host tensors
+    are counted on the host."""
+
+    def __init__(self, name, signatures, keys, plain, error=None):
+        self.name = name
+        self.signatures = signatures
+        self.keys = tuple(keys)
+        self.error = error or name + "_error_string"
+        self._cards = {}                    # card index -> counters
+        self._plain = dict.fromkeys(plain, 0)
+
+    def library(self) -> ctypes.CDLL:
+        """The loaded library, its signatures bound."""
+        lib = load(self.name)
+        err = getattr(lib, self.error)
+        if err.argtypes is None:
+            for fn, argtypes in self.signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes, f.restype = argtypes, ctypes.c_int
+            err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        return lib
+
+    def counters(self, device) -> torch.Tensor:
+        """The card's launch counters, made at its first call."""
+        c = self._cards.get(device.index)
+        if c is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"{self.name}: the launch counters of a "
+                                   "card cannot be made inside a CUDA graph "
+                                   "capture")
+            c = self._cards[device.index] = torch.zeros(
+                len(self.keys), dtype=torch.int64, device=device)
+        return c
+
+    def counter(self, device, key) -> int:
+        """The address of counter ``key`` on the card, for the C side."""
+        c = self.counters(device)
+        return c.data_ptr() + c.element_size() * self.keys.index(key)
+
+    def check(self, lib, err, what):
+        """Raise with the library's message where ``err`` is not 0."""
+        if err != 0:
+            raise RuntimeError(f"{self.name}: {what} failed: "
+                               + getattr(lib, self.error)(err).decode())
+
+    def launch(self, fn, device, *args, key=None):
+        """``fn(*args, counter, stream)`` on the card's current stream, a
+        tensor among ``args`` passed as its address; counted by counter
+        ``key`` (default: ``fn``); raises if the launch is refused."""
+        lib = self.library()
+        args = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
+        counter = self.counter(device, key or fn)
+        with torch.cuda.device(device):
+            err = getattr(lib, fn)(
+                *args, counter, torch.cuda.current_stream(device).cuda_stream)
+        self.check(lib, err, f"{fn} launch")
+
+    def plain_call(self, key):
+        """One call served by plain version ``key`` on host tensors."""
+        self._plain[key] += 1
+
+    def plain_calls(self, key=None) -> int:
+        """The calls plain version ``key`` served (all, by default)."""
+        return (sum(self._plain.values()) if key is None
+                else self._plain[key])
+
+    def counts(self) -> dict:
+        """Each counter's launches on every card (read after a synchronise
+        of the card, so that every launch queued has run) and
+        ``cpu_calls``, the calls of every plain version."""
+        out = dict.fromkeys(self.keys, 0)
+        for index, c in self._cards.items():
+            torch.cuda.synchronize(index)
+            for key, n in zip(self.keys, c.tolist()):
+                out[key] += n
+        out["cpu_calls"] = self.plain_calls()
+        return out
+
+    def reset(self):
+        """Set every count of :meth:`counts` to 0."""
+        for index, c in self._cards.items():
+            torch.cuda.synchronize(index)
+            c.zero_()
+            torch.cuda.synchronize(index)
+        self._plain = dict.fromkeys(self._plain, 0)

@@ -49,7 +49,7 @@ import torch
 
 from ..etdrk4 import fold_filter_into
 from ..ops import derive_fused, spectral, stage_fused
-from ..ops.derive_fused import Plan
+from ..ops.derive_fused import Plan, QLayout, q_layout
 from ..ops.spectral import abs2, jmul, mul_i
 from ..parallel.mesh import reflect_spectrum
 from ..utils.profiling import count
@@ -94,18 +94,14 @@ class FastWaveKernel(WaveKernel):
                     f"({type(physics).__name__} keeps ph unprojected)")
             q_half = False
         self._q_half_arg = q_half
-        # resolves q_half (_q_layout) and builds coefs_q in its layout
+        # resolves the q side's layout (_q_layout) and builds coefs_q in it
         super().__init__(params, physics, **kw)
         if self.pair_inverse and not hasattr(self.tr, "ifft2_real_pairs"):
             raise ValueError("pair_inverse needs a transform provider with "
                              "ifft2_real_pairs")
         g = self.grid
         nk = params.nx // 2 + 1
-        # the q side's global width: nk = nx//2+1 columns and, on a mesh,
-        # the transform's padding; the full nx otherwise
-        qwidth = nk + self._qpad if self.q_half else g.nk
-        self._qshape = (g.nl, qwidth // (1 if self.mesh is None
-                                         else self.mesh.nP))
+        self._qshape = (g.nl, self.layout.kq.shape[0])
         if self.q_half:
             half = self._dev
             self.qtab = _QTables(
@@ -120,24 +116,6 @@ class FastWaveKernel(WaveKernel):
             deg = np.full((1, nk), 2.0)
             deg[0, 0] = deg[0, params.nx // 2] = 1.0
             self._qdeg = self._dev(deg)
-            # y-derivative l table: an l-derivative of a Hermitian spectrum
-            # is purely anti-Hermitian on the Nyquist row's interior
-            # columns, so its half-layout representative there is 0
-            l_dy = g.l_np[:, :nk].copy()
-            l_dy[g.ny // 2, 1:params.nx // 2] = 0.0
-            self._l_dy = self._dev(l_dy)
-        # local indices of the self-mirror columns k = 0, nx/2 on this
-        # rank, in the q side's layout
-        self._mirror_cols = g.local_cols([0, params.nx // 2], qwidth)
-        if self.pair_inverse:
-            # l-derivative table, Nyquist-row interior columns zeroed: an
-            # l-derivative of a Hermitian spectrum is purely anti-Hermitian
-            # there; the full-projection read annihilates it, and the
-            # packed read must never create it
-            l_dy = g.l_np.copy()
-            l_dy[g.ny // 2, 1:params.nx // 2] = 0.0
-            l_dy[g.ny // 2, params.nx // 2 + 1:] = 0.0
-            self._l_dy = g._dev(l_dy)
 
         def _inv_real(z):
             return self._inv_packed(self._inv_prepare(z))
@@ -156,10 +134,8 @@ class FastWaveKernel(WaveKernel):
         self._w_chi = g._dev(w_chi)
         if self.q_half:
             # fold the Hermitian degeneracy into the q-side weight
-            w_eppsi = w_eppsi[:, :params.nx // 2 + 1] * deg
-            self._w_eppsi = self._dev(w_eppsi)
-        else:
-            self._w_eppsi = g._dev(w_eppsi)
+            w_eppsi = w_eppsi[:, :nk] * deg
+        self._w_eppsi = self._dev(w_eppsi)
 
         # the Parseval sums' scales, made once (see WaveKernel._dt)
         self._inv_M = self._s(1.0 / float(g.M))
@@ -171,18 +147,18 @@ class FastWaveKernel(WaveKernel):
             self.coefs_w = fold_filter_into(self.coefs_w, self._flt_w)
             self._flt_q = None
             self._flt_w = None
-        # what the derive's kernels read (ops/derive_fused.py); the card's
-        # launch counters are made here, outside any capture
+        # what the fused kernels read; the card's launch counters are made
+        # here, outside any capture (the stage's with its workspace)
         self._plan = self._derive_plan()
         self._stage_plan = self._epilogue_plan()
         if self.device.type == "cuda":
-            derive_fused.launch_counter(self.device)
-            stage_fused.launch_counter(self.device)
+            derive_fused.FAMILY.counters(self.device)
 
-    def _q_layout(self):
+    def _q_layout(self) -> QLayout:
         """Resolve ``q_half`` now that the transform is known; the q side's
         layout is then the half spectrum, padded with the transform's
-        ``rfft_pad`` zero columns (``Grid.half_np``), or the full one."""
+        ``rfft_pad`` zero columns (``Grid.half_np``), or the full one, read
+        through pair-packed inverses under ``pair_inverse``."""
         q_half, physics = self._q_half_arg, self.physics
         if self.mesh is not None and not getattr(self.tr, "internal_pad",
                                                  False):
@@ -200,17 +176,15 @@ class FastWaveKernel(WaveKernel):
                 "q_half requires Hermitian-projecting physics "
                 f"({type(physics).__name__} keeps ph unprojected)")
         self.q_half = bool(q_half)
-        # the half layout's padding to a mesh-divisible width
-        self._qpad = getattr(self.tr, "rfft_pad", 0) if self.q_half else 0
-        if not self.q_half:
-            return super()._q_layout()
-        return lambda a: self.grid.half_np(a, self._qpad)
+        return q_layout(
+            self.grid, physics.hermitian_ph, half=self.q_half,
+            pad=getattr(self.tr, "rfft_pad", 0) if self.q_half else 0,
+            pair=self.pair_inverse)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
-        """A half-layout table on the device: the first nx//2+1 columns of
-        a full-layout host table, padded and cut to this rank's block
-        (``Grid.half_np``)."""
-        a = self.grid.half_np(np.asarray(a, np.float64), self._qpad)
+        """A q-side table on the device: a full-layout host table cut to
+        this rank's block of the q side's layout."""
+        a = self.layout.cut(np.asarray(a, np.float64))
         return torch.as_tensor(np.ascontiguousarray(a).astype(self.dtype),
                                device=self.device)
 
@@ -255,7 +229,7 @@ class FastWaveKernel(WaveKernel):
         if plain is None:
             plain = qh.device.type == "cpu"
         if qh.device.type == "cpu":
-            derive_fused.count_host_call()
+            derive_fused.FAMILY.plain_call("invert")
         elif not plain:
             count("step.derive_fused")
         fj = None
@@ -296,7 +270,7 @@ class FastWaveKernel(WaveKernel):
             a = self._plan
             qwh, ph, batch = derive_fused.invert(qh, fj, qt.wv2, qt.wv2i,
                                                  qt.filtr, a)
-            if a.proj == derive_fused.PROJ_RAW:
+            if self.layout.proj == derive_fused.PROJ_RAW:
                 # the mirror columns live on other ranks: exchange, project
                 derive_fused.project_pack(
                     ph, reflect_spectrum(ph, self.mesh), batch, a)
@@ -323,60 +297,39 @@ class FastWaveKernel(WaveKernel):
 
     def _derive_plan(self) -> Plan:
         """The layout and physics as the derive's kernels read them: the
-        choices ``_invert_pack``'s plain chain, ``_l_dy`` and
-        ``_project_ph`` make, as numbers."""
+        choices ``_invert_pack``'s plain chain makes, as numbers."""
         g, ph, p = self.grid, self.physics, self.params
-        one_rank = self.mesh is None or self.mesh.nP == 1
-        if not ph.hermitian_ph:
-            proj = derive_fused.PROJ_NONE
-        elif self.q_half or self.pair_inverse:
-            proj = derive_fused.PROJ_MIRROR
-        else:
-            proj = (derive_fused.PROJ_REFLECT if one_rank
-                    else derive_fused.PROJ_RAW)
         slots = ["u", "v", "q"]
         if not self._drop_p:
             slots.insert(0, "ph")
         if ph.subtracts_wave_pv:
             slots.append("qpsi")
-        wq = self._qshape[1]
         # PyTorch's CUDA division by a scalar multiplies by its reciprocal,
         # rounded on the host in the working type
         inv_f = (1.0 / p.f if self.rdtype == torch.float64
                  else float(np.float32(1.0) / np.float32(p.f)))
         return Plan(
-            k=g.k[0].contiguous(), l=g.l[:, 0].contiguous(),
-            kq=self.qtab.k[0].contiguous(),
-            col0=0 if one_rank else self.mesh.block(wq * self.mesh.nP).start,
-            nx=p.nx, nreal=p.nx // 2 + 1 if self.q_half else p.nx,
-            nyq=(derive_fused.NYQ_HALF if self.q_half else
-                 derive_fused.NYQ_PAIR if self.pair_inverse else
-                 derive_fused.NYQ_L),
+            k=g.k[0].contiguous(), q=self.layout,
             flags=((derive_fused.WAVE_PV if ph.has_wave_pv else 0)
                    | (derive_fused.IMAG_JAC if ph.wave_pv_imag_jac else 0)
                    | (derive_fused.OWNS_MEAN if g.owns_mean_mode else 0)),
-            proj=proj,
             slots=tuple(slots.index(s) if s in slots else -1
                         for s in derive_fused.SLOTS),
             inv_f=inv_f)
 
     def _epilogue_plan(self) -> stage_fused.Plan:
         """The layout and physics as the stage epilogue's kernel reads
-        them: the weight tables, and the q side's numbers of the derive's
-        plan (``_l_dy`` is its ``l`` cut by ``nyq`` and ``nreal``)."""
-        g, a = self.grid, self._plan
-        rd = np.float64 if self.rdtype == torch.float64 else np.float32
+        them: the weight tables and the q side's layout."""
+        g = self.grid
         ws = (stage_fused.workspace(self.device)
               if self.device.type == "cuda" else (None, None, 0))
         return stage_fused.Plan(
             w_d=self._w_d.contiguous(), w_chi=self._w_chi.contiguous(),
             wv2=g.wv2.contiguous(), w_eppsi=self._w_eppsi.contiguous(),
-            kq=a.kq, lq=a.l, col0=a.col0, nx=a.nx, nreal=a.nreal, nyq=a.nyq,
-            zero_jac=bool(self.physics.zero_mean_jac_psi_phi),
-            owner=g.owns_mean_mode,
-            inv_m=float(rd(1.0 / float(g.M))),
-            inv_m2=float(rd(1.0 / float(g.M) ** 2)), partials=ws[0],
-            arrivals=ws[1], blocks=ws[2])
+            q=self.layout, zero_jac=bool(self.physics.zero_mean_jac_psi_phi),
+            owner=g.owns_mean_mode, inv_m=self._inv_M.item(),
+            inv_m2=self._inv_M2.item(), partials=ws[0], arrivals=ws[1],
+            blocks=ws[2])
 
     def _inv_prepare(self, z):
         """What a stack of q-side spectra needs before ``_inv_packed``.
@@ -404,7 +357,7 @@ class FastWaveKernel(WaveKernel):
 
     def _project_mirror_cols(self, z):
         return spectral.hermitian_project_half(z, self.params.nx,
-                                               self._mirror_cols)
+                                               self.layout.mirror)
 
     def _project_ph(self, ph):
         """The reference inversion's ``fft(real(ifft(.)))`` sandwich."""
@@ -457,7 +410,7 @@ class FastWaveKernel(WaveKernel):
         if sources and not self.physics.hermitian_ph:
             ph = self._project_ph(ph)  # the kernel reads the projected ph
         if refrh.device.type == "cpu":
-            stage_fused.count_host_call()
+            stage_fused.FAMILY.plain_call("epilogue")
         elif not plain:
             count("step.stage_fused")
             return stage_fused.epilogue(

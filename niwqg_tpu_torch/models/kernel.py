@@ -33,6 +33,7 @@ from ..etdrk4 import (build_coefs, coefs_cut, linear_operator_phi,
                       linear_operator_q)
 from ..grid import Grid
 from ..ops import spectral
+from ..ops.derive_fused import QLayout, q_layout
 from ..ops.fft import make_transform
 from ..ops.spectral import abs2, jmul
 from ..parallel.mesh import all_sum
@@ -201,10 +202,10 @@ class WaveKernel:
                                      precision=precision, device=self.device,
                                      **(transform_opts or {}))
         p = params
-        q_layout = self._q_layout()
+        self.layout = self._q_layout()
         self.coefs_q = coefs_cut(
             linear_operator_q(self.grid, p.U, p.nu4, p.nu, p.mu), p.dt,
-            self.grid, q_layout)
+            self.grid, self.layout.cut)
         self.coefs_w = build_coefs(
             self.grid,
             linear_operator_phi(self.grid, p.U, p.f, p.kappa2, p.nu4w, p.nuw,
@@ -218,9 +219,9 @@ class WaveKernel:
         self._fwd_real = self.tr.fft2_real
         self._inv_real = self.tr.ifft2_real
         self._qdeg = None
-        # l table for q-side y-derivatives (the fast kernel zeroes its
-        # Nyquist row's interior columns in half mode)
-        self._l_dy = self.grid.l
+        # l table for q-side y-derivatives (the fast kernel's half and
+        # pair_inverse layouts zero part of its Nyquist row)
+        self._l_dy = self.layout.l_dy()
         # scalar constants on the device, made once: a tensor made from a
         # Python number inside a step is a blocking copy from the host, and
         # one that a CUDA graph capture refuses
@@ -229,11 +230,10 @@ class WaveKernel:
         self._zero = torch.zeros((), dtype=self.rdtype, device=self.device)
 
     # ------------------------------------------------------------------
-    def _q_layout(self):
-        """The q side's layout: a function from a full-layout global host
-        table to this rank's block of it (the fast kernel's ``q_half``
-        cuts it to the half spectrum)."""
-        return self.grid.spec_np
+    def _q_layout(self) -> QLayout:
+        """The q side's layout: the full spectrum (the fast kernel's
+        ``q_half`` cuts it to the half spectrum)."""
+        return q_layout(self.grid, self.physics.hermitian_ph)
 
     def _s(self, x) -> torch.Tensor:
         """A 0-d tensor of a Python number (a copy from the host: for

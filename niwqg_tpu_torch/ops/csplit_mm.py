@@ -30,10 +30,10 @@ six-plane call prepares on the fly.
 The kernels count their own launches, on the card: each adds one to its
 route's counter in device memory as it runs, so a launch replayed from a
 CUDA graph counts as one from the host does, and a capture, which runs
-nothing, counts none. :func:`counts` reads them (``launches``, and
-``launches_tc`` and ``launches_f32`` per route) with
-``csplit_matmul.cpu_calls``, the calls served on the host;
-:func:`reset_counts` sets all to 0.
+nothing, counts none (``FAMILY``, a ``cuda_build.Family``). :func:`counts`
+reads them (``launches``, and ``launches_tc`` and ``launches_f32`` per
+route) with ``cpu_calls``, the calls served on the host
+(``FAMILY.plain_calls()``); :func:`reset_counts` sets all to 0.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ import ctypes
 
 import torch
 
-from ..cuda_build import load
+from ..cuda_build import Family
 
 _HI_MASK = -65536  # 0xFFFF0000 as a signed 32-bit integer
 
@@ -164,57 +164,23 @@ def _check(ar, ai, planes, need_cuda=None):
     return M, N, K
 
 
-def _library():
-    """The kernels' library, built at first use, with its C signatures."""
-    lib = load("csplit_mm")
-    if lib.csplit_matmul_f32.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.csplit_matmul_f32.argtypes = [ptr] * 8 + [i32] * 3 + [ptr] * 2
-        lib.csplit_matmul_f32.restype = i32
-        lib.csplit_matmul_tc.argtypes = [ptr] * 5 + [i32] * 3 + [ptr] * 2
-        lib.csplit_matmul_tc.restype = i32
-        lib.csplit_error_string.argtypes = [i32]
-        lib.csplit_error_string.restype = ctypes.c_char_p
-    return lib
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+# the kernels' library: a launch counter per route
+FAMILY = Family(
+    "csplit_mm",
+    {"csplit_matmul_f32": [_ptr] * 8 + [_i32] * 3 + [_ptr] * 2,
+     "csplit_matmul_tc": [_ptr] * 5 + [_i32] * 3 + [_ptr] * 2},
+    keys=["launches_tc", "launches_f32"], plain=["csplit_matmul"],
+    error="csplit_error_string")
 
 
-# the kernels' launch counters of each card (by index), counted on the
-# card: int64 (launches of the tensor-core kernel, of the f32-FMA kernel)
-_ROUTES = ("tc", "f32")
-_LAUNCHES = {}
-
-
-def _launch_counter(device):
-    """The card's launch counters, made at its first launch (which must be
-    outside a capture: a tensor made there would live in the graph's
-    pool)."""
-    c = _LAUNCHES.get(device.index)
-    if c is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("csplit_matmul's first launch on a card "
-                               "cannot be inside a CUDA graph capture")
-        c = _LAUNCHES[device.index] = torch.zeros(
-            len(_ROUTES), dtype=torch.int64, device=device)
-    return c
-
-
-def _launch(route_name, ar, ai, b_ptrs, M, N, K):
+def _launch(route_name, ar, ai, b, M, N, K):
     """Launch one of the library's kernels on A's stream; raises if the
     launch is refused."""
-    lib = _library()
-    counter = _launch_counter(ar.device)
     out_re = torch.empty((M, N), device=ar.device, dtype=torch.float32)
     out_im = torch.empty((M, N), device=ar.device, dtype=torch.float32)
-    with torch.cuda.device(ar.device):
-        stream = torch.cuda.current_stream(ar.device).cuda_stream
-        err = getattr(lib, "csplit_matmul_" + route_name)(
-            ar.data_ptr(), ai.data_ptr(), *b_ptrs, out_re.data_ptr(),
-            out_im.data_ptr(), M, N, K,
-            counter.data_ptr() + counter.element_size()
-            * _ROUTES.index(route_name), stream)
-    if err != 0:
-        raise RuntimeError("csplit_matmul kernel launch failed: "
-                           + lib.csplit_error_string(err).decode())
+    FAMILY.launch("csplit_matmul_" + route_name, ar.device, ar, ai, *b,
+                  out_re, out_im, M, N, K, key="launches_" + route_name)
     return out_re, out_im
 
 
@@ -224,7 +190,7 @@ def csplit_matmul_f32(ar, ai, brh, brl, bih, bil):
     cores; callable on its own to time it beside the other)."""
     planes = (brh, brl, bih, bil)
     M, N, K = _check(ar, ai, planes, need_cuda="csplit_matmul_f32")
-    return _launch("f32", ar, ai, [t.data_ptr() for t in planes], M, N, K)
+    return _launch("f32", ar, ai, planes, M, N, K)
 
 
 def csplit_matmul_tc(ar, ai, b: PreparedB):
@@ -236,13 +202,13 @@ def csplit_matmul_tc(ar, ai, b: PreparedB):
                          f"{(K, N)}: see route()")
     if b.bf16.device != ar.device or not b.bf16.is_contiguous():
         raise ValueError("prepared B planes must be contiguous on A's device")
-    return _launch("tc", ar, ai, [b.bf16.data_ptr()], M, N, K)
+    return _launch("tc", ar, ai, [b.bf16], M, N, K)
 
 
 def _dispatch(ar, ai, planes, prepared):
     M, N, K = _check(ar, ai, planes)
     if ar.device.type == "cpu":
-        csplit_matmul.cpu_calls += 1
+        FAMILY.plain_call("csplit_matmul")
         return csplit_matmul_ref(ar, ai, *planes)
     if route(M, N, K) == "tc":
         return csplit_matmul_tc(ar, ai, prepared or prepare_b(*planes))
@@ -265,28 +231,14 @@ def csplit_matmul(ar, ai, brh, brl, bih, bil):
     return _dispatch(ar, ai, (brh, brl, bih, bil), None)
 
 
-csplit_matmul.cpu_calls = 0
-
-
 def counts() -> dict:
     """K1's counters: the kernels' launches on every card (read after a
     synchronise of the card, so that every launch queued has run), in all
     (``launches``) and per route (``launches_tc``, ``launches_f32``), and
     ``cpu_calls``."""
-    out = {"launches_" + r: 0 for r in _ROUTES}
-    for index, c in _LAUNCHES.items():
-        torch.cuda.synchronize(index)
-        for r, n in zip(_ROUTES, c.tolist()):
-            out["launches_" + r] += n
-    out["launches"] = sum(out.values())
-    out["cpu_calls"] = csplit_matmul.cpu_calls
+    out = FAMILY.counts()
+    out["launches"] = sum(out[k] for k in FAMILY.keys)
     return out
 
 
-def reset_counts():
-    """Set every counter of :func:`counts` to 0."""
-    for index, c in _LAUNCHES.items():
-        torch.cuda.synchronize(index)
-        c.zero_()
-        torch.cuda.synchronize(index)
-    csplit_matmul.cpu_calls = 0
+reset_counts = FAMILY.reset

@@ -25,25 +25,35 @@ physics. Each launches on the tensors' current stream and raises if the
 launch is refused; none has a host path (the plain chain is the kernel
 object's, and runs on host tensors).
 
-The kernels count their own launches, on the card: thread 0 of block 0
-adds one to the kernel's counter in device memory, so a launch replayed
-from a CUDA graph counts as one from the host does, and a capture, which
-runs nothing, counts none. :func:`counts` reads them with ``cpu_calls``,
-the inversions the plain chain served on host tensors
-(:func:`count_host_call`); :func:`reset_counts` sets all to 0.
+The kernels count their own launches on the card, one counter each
+(``FAMILY``, a ``cuda_build.Family``): :func:`counts` reads them with
+``cpu_calls``, the inversions the plain chain served on host tensors
+(``FAMILY.plain_call("invert")``); :func:`reset_counts` sets all to 0.
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from ..cuda_build import load
+from ..cuda_build import Family
 
 KERNELS = ("derive_grad_pack", "derive_wave_pv", "derive_invert",
            "derive_project_pack")
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+FAMILY = Family(
+    "derive",
+    {"derive_grad_pack": [_ptr] * 4 + [_i32] * 3 + [_ptr] * 2,
+     "derive_wave_pv": [_ptr] * 4 + [ctypes.c_longlong, _i32, _ptr, _ptr],
+     "derive_invert": ([_ptr] * 10 + [ctypes.c_double] + [_i32] * 14
+                       + [_ptr] * 2),
+     "derive_project_pack": [_ptr] * 5 + [_i32] * 10 + [_ptr] * 2},
+    keys=KERNELS, plain=["invert"])
+counts, reset_counts = FAMILY.counts, FAMILY.reset
 
 # derive_invert's flags and projection modes (csrc/derive.cu)
 WAVE_PV, IMAG_JAC, OWNS_MEAN = 1, 2, 4
@@ -55,99 +65,71 @@ NYQ_L, NYQ_HALF, NYQ_PAIR = 0, 1, 2
 SLOTS = ("ph", "u", "v", "q", "qpsi")
 
 
+class QLayout(NamedTuple):
+    """A wave kernel's q-side layout, resolved once (:func:`q_layout`):
+    what the plain chain's q-side tables are cut by and the kernels read."""
+
+    cut: object       # a global full-layout host table -> this rank's block
+    kq: torch.Tensor  # (wq,) k of this rank's q-side columns
+    l: torch.Tensor   # (ny,) l by row
+    col0: int         # this rank's first global q-side column
+    nx: int
+    nreal: int        # global q-side columns that hold data (beyond: pad)
+    pad: int          # zero columns after the half spectrum's nx//2+1
+    nyq: int          # NYQ_*
+    proj: int         # PROJ_*: ph's Hermitian projection
+    mirror: tuple     # local indices of the self-mirror columns k = 0, nx/2
+
+    def l_dy(self) -> torch.Tensor:
+        """The ``(ny, wq)`` l table of the q side's y-derivatives, as the
+        kernels make it: zero on padded columns and, by ``nyq``, on part of
+        the Nyquist row, where the l-derivative of a Hermitian spectrum is
+        purely anti-Hermitian: the half layout's representative there is
+        0, and ``pair_inverse``'s packed read must never create it."""
+        ny, wq = self.l.shape[0], self.kq.shape[0]
+        cg = torch.arange(self.col0, self.col0 + wq, device=self.l.device)
+        out = self.l[:, None].repeat(1, wq)
+        out[:, cg >= self.nreal] = 0.0
+        if self.nyq == NYQ_HALF:
+            out[ny // 2, (cg >= 1) & (cg < self.nx // 2)] = 0.0
+        elif self.nyq == NYQ_PAIR:
+            out[ny // 2, (cg != 0) & (cg != self.nx // 2)] = 0.0
+        return out
+
+
+def q_layout(grid, hermitian: bool, half=False, pad=0, pair=False):
+    """The q side's :class:`QLayout` on ``grid`` (this rank's block): the
+    half spectrum padded with ``pad`` zero columns (``Grid.half_np``), or
+    the full one, read through pair-packed inverses where ``pair``;
+    ``hermitian``: whether the physics projects ``ph``."""
+    nx = grid.nx
+    cut = partial(grid.half_np, pad=pad) if half else grid.spec_np
+    nreal = nx // 2 + 1 if half else nx
+    width = nreal + pad
+    one_rank = grid.mesh is None or grid.mesh.nP == 1
+    col0 = 0 if grid.mesh is None else grid.mesh.block(width).start
+    kq = np.ascontiguousarray(cut(grid.k_np)[0]).astype(grid.dtype)
+    if not hermitian:
+        proj = PROJ_NONE
+    elif half or pair:
+        proj = PROJ_MIRROR
+    else:
+        proj = PROJ_REFLECT if one_rank else PROJ_RAW
+    return QLayout(
+        cut=cut, kq=torch.as_tensor(kq, device=grid.device),
+        l=grid.l[:, 0].contiguous(), col0=col0, nx=nx, nreal=nreal, pad=pad,
+        nyq=NYQ_HALF if half else NYQ_PAIR if pair else NYQ_L, proj=proj,
+        mirror=tuple(grid.local_cols([0, nx // 2], width)))
+
+
 class Plan(NamedTuple):
     """What the kernels read of a kernel object's layout and physics."""
 
     k: torch.Tensor   # (w,) k of the phi side's columns
-    l: torch.Tensor   # (ny,) l by row
-    kq: torch.Tensor  # (wq,) k of the q side's columns
-    col0: int         # the q side's first global column on this rank
-    nx: int
-    nreal: int        # global q-side columns that hold data (beyond: pad)
-    nyq: int          # NYQ_*
+    q: QLayout        # the q side's
     flags: int        # WAVE_PV | IMAG_JAC | OWNS_MEAN
-    proj: int         # PROJ_*
     slots: tuple      # the batch index of each of SLOTS, -1 where absent
     inv_f: float      # 1/f as PyTorch's CUDA division by a scalar rounds it
-
-
-_cpu_calls = 0
-# each card's launch counters (by index), int64 in KERNELS' order
-_LAUNCHES = {}
-
-
-def launch_counter(device):
-    """The card's launch counters, made at its first call, which must be
-    outside a capture (a tensor made there would live in the graph's pool):
-    the kernel object calls it when it is built."""
-    c = _LAUNCHES.get(device.index)
-    if c is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("the fused derive's first launch on a card "
-                               "cannot be inside a CUDA graph capture")
-        c = _LAUNCHES[device.index] = torch.zeros(
-            len(KERNELS), dtype=torch.int64, device=device)
-    return c
-
-
-def count_host_call():
-    """One inversion served by the plain chain on host tensors."""
-    global _cpu_calls
-    _cpu_calls += 1
-
-
-def counts() -> dict:
-    """Each kernel's launches on every card (read after a synchronise of
-    the card, so that every launch queued has run) and ``cpu_calls``."""
-    out = dict.fromkeys(KERNELS, 0)
-    for index, c in _LAUNCHES.items():
-        torch.cuda.synchronize(index)
-        for name, n in zip(KERNELS, c.tolist()):
-            out[name] += n
-    out["cpu_calls"] = _cpu_calls
-    return out
-
-
-def reset_counts():
-    """Set every count of :func:`counts` to 0."""
-    global _cpu_calls
-    for index, c in _LAUNCHES.items():
-        torch.cuda.synchronize(index)
-        c.zero_()
-        torch.cuda.synchronize(index)
-    _cpu_calls = 0
-
-
-def _library():
-    lib = load("derive")
-    if lib.derive_invert.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.derive_grad_pack.argtypes = [ptr] * 4 + [i32] * 3 + [ptr] * 2
-        lib.derive_wave_pv.argtypes = [ptr] * 4 + [ctypes.c_longlong, i32,
-                                                   ptr, ptr]
-        lib.derive_invert.argtypes = ([ptr] * 10 + [ctypes.c_double]
-                                      + [i32] * 14 + [ptr] * 2)
-        lib.derive_project_pack.argtypes = ([ptr] * 5 + [i32] * 10
-                                            + [ptr] * 2)
-        for name in KERNELS:
-            getattr(lib, name).restype = i32
-        lib.derive_error_string.argtypes = [i32]
-        lib.derive_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _launch(name, device, *args):
-    """Launch ``name`` on ``device``'s current stream with its launch
-    counter; raises if the launch is refused."""
-    lib = _library()
-    c = launch_counter(device)
-    counter = c.data_ptr() + c.element_size() * KERNELS.index(name)
-    with torch.cuda.device(device):
-        err = getattr(lib, name)(
-            *args, counter, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           + lib.derive_error_string(err).decode())
 
 
 def _f64(z) -> int:
@@ -160,8 +142,8 @@ def grad_pack(phih, plan: Plan):
     out = torch.empty((3,) + tuple(phih.shape), dtype=phih.dtype,
                       device=phih.device)
     ny, w = phih.shape
-    _launch("derive_grad_pack", phih.device, phih.data_ptr(), out.data_ptr(),
-            plan.k.data_ptr(), plan.l.data_ptr(), ny, w, _f64(phih))
+    FAMILY.launch("derive_grad_pack", phih.device, phih, out, plan.k,
+                  plan.q.l, ny, w, _f64(phih))
     return out
 
 
@@ -170,8 +152,8 @@ def wave_pv(phi, phix, phiy):
     phi, phix, phiy = (t.contiguous() for t in (phi, phix, phiy))
     out = torch.empty((2,) + tuple(phi.shape), dtype=phi.real.dtype,
                       device=phi.device)
-    _launch("derive_wave_pv", phi.device, phi.data_ptr(), phix.data_ptr(),
-            phiy.data_ptr(), out.data_ptr(), phi.numel(), _f64(phi))
+    FAMILY.launch("derive_wave_pv", phi.device, phi, phix, phiy, out,
+                  phi.numel(), _f64(phi))
     return out
 
 
@@ -186,19 +168,16 @@ def invert(qh, fj, wv2, wv2i, filtr, plan: Plan):
     if fj is not None:
         fj = fj.contiguous()
     ny, w = qh.shape
-    if plan.proj == PROJ_REFLECT and w != plan.nx:
+    q = plan.q
+    if q.proj == PROJ_REFLECT and w != q.nx:
         raise ValueError("the one-rank reflection needs the full width")
     qwh = torch.empty_like(qh) if fj is not None else torch.zeros_like(qh)
     ph = torch.empty_like(qh)
     batch = torch.empty((sum(s >= 0 for s in plan.slots), ny, w),
                         dtype=qh.dtype, device=qh.device)
-    _launch("derive_invert", qh.device,
-            None if fj is None else fj.data_ptr(), qh.data_ptr(),
-            qwh.data_ptr(), ph.data_ptr(), batch.data_ptr(), wv2.data_ptr(),
-            wv2i.data_ptr(), filtr.data_ptr(), plan.kq.data_ptr(),
-            plan.l.data_ptr(), plan.inv_f, ny, w, plan.col0, plan.nx,
-            plan.nreal, plan.flags, plan.nyq, plan.proj, *plan.slots,
-            _f64(qh))
+    FAMILY.launch("derive_invert", qh.device, fj, qh, qwh, ph, batch, wv2,
+                  wv2i, filtr, q.kq, q.l, plan.inv_f, ny, w, q.col0, q.nx,
+                  q.nreal, plan.flags, q.nyq, q.proj, *plan.slots, _f64(qh))
     return qwh, ph, batch
 
 
@@ -208,7 +187,7 @@ def project_pack(ph, refl, batch, plan: Plan):
     refl = refl.contiguous()
     ny, w = ph.shape
     s_ph, s_u, s_v = plan.slots[:3]
-    _launch("derive_project_pack", ph.device, ph.data_ptr(), refl.data_ptr(),
-            batch.data_ptr(), plan.kq.data_ptr(), plan.l.data_ptr(), ny, w,
-            plan.col0, plan.nx, plan.nreal, plan.nyq, s_ph, s_u, s_v,
-            _f64(ph))
+    q = plan.q
+    FAMILY.launch("derive_project_pack", ph.device, ph, refl, batch, q.kq,
+                  q.l, ny, w, q.col0, q.nx, q.nreal, q.nyq, s_ph, s_u, s_v,
+                  _f64(ph))

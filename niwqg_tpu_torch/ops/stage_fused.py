@@ -16,14 +16,12 @@ launches on the tensors' current stream and raises if the launch is
 refused; it has no host path (the plain chain is the kernel object's, and
 runs on host tensors).
 
-The kernel counts its own launches, on the card: thread 0 of block 0 adds
-one to a counter in device memory, so a launch replayed from a CUDA graph
-counts as one from the host does, and a capture, which runs nothing,
-counts none. There are two counters, by use (``USES``): ``stage``, a
-stage's right-hand sides (with or without its partials), and ``sources``,
-the partials alone (the diagnostics' sources). :func:`counts` reads them
-with ``cpu_calls``, the epilogues the plain chain served on host tensors
-(:func:`count_host_call`); :func:`reset_counts` sets all to 0.
+The kernel counts its own launches on the card (``FAMILY``, a
+``cuda_build.Family``), by use (``USES``): ``stage``, a stage's right-hand
+sides (with or without its partials), and ``sources``, the partials alone
+(the diagnostics' sources). :func:`counts` reads them with ``cpu_calls``,
+the epilogues the plain chain served on host tensors
+(``FAMILY.plain_call("epilogue")``); :func:`reset_counts` sets all to 0.
 """
 
 from __future__ import annotations
@@ -33,11 +31,19 @@ from typing import NamedTuple
 
 import torch
 
-from ..cuda_build import load
+from ..cuda_build import Family
+from .derive_fused import QLayout
 
 KERNELS = ("stage_epilogue",)
 # the launch counters, by use
 USES = ("stage", "sources")
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+FAMILY = Family(
+    "stage",
+    {"stage_epilogue": ([_ptr] * 12 + [_i32] * 10 + [ctypes.c_double] * 2
+                        + [_i32] * 3 + [_ptr] * 2)},
+    keys=USES, plain=["epilogue"])
+counts, reset_counts = FAMILY.counts, FAMILY.reset
 # the budget partials: seven weighted sums, then four mean-mode entries
 N_PARTS = 11
 N_SUMS = 7
@@ -53,12 +59,7 @@ class Plan(NamedTuple):
     w_chi: torch.Tensor    # (ny, w) chi_phi's weight
     wv2: torch.Tensor      # (ny, w) the wave side's wv2
     w_eppsi: torch.Tensor  # (ny, wq) ep_psi's weight (half: degeneracy in)
-    kq: torch.Tensor       # (wq,) k of the q side's columns
-    lq: torch.Tensor       # (ny,) l by row
-    col0: int              # the q side's first global column on this rank
-    nx: int
-    nreal: int             # global q-side columns that hold data
-    nyq: int               # l_dy on the Nyquist row (derive_fused.NYQ_*)
+    q: QLayout             # the q side's layout
     zero_jac: bool         # zero Fnw's Jacobian at the mean mode
     owner: bool            # this rank holds the (0,0) mode
     inv_m: float           # 1/M, rounded as the working type rounds it
@@ -68,81 +69,18 @@ class Plan(NamedTuple):
     blocks: int
 
 
-_cpu_calls = 0
-# each card's launch counters (by index), int64 in USES' order
-_LAUNCHES = {}
-
-
-def _outside_capture(what):
-    if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(f"the fused stage epilogue's {what} on a card "
-                           "cannot be made inside a CUDA graph capture")
-
-
-def launch_counter(device):
-    """The card's launch counters, made at its first call, which must be
-    outside a capture (a tensor made there would live in the graph's pool):
-    the kernel object calls it when it is built."""
-    c = _LAUNCHES.get(device.index)
-    if c is None:
-        _outside_capture("launch counters")
-        c = _LAUNCHES[device.index] = torch.zeros(
-            len(USES), dtype=torch.int64, device=device)
-    return c
-
-
 def workspace(device):
     """A kernel object's ``(partials, arrivals, blocks)`` on ``device``:
     room for ``blocks`` blocks' partial sums (float64) and the count of
     blocks done (int32, 0 between launches: the last block resets it).
-    Made with the kernel object, outside any capture; its launches, one
-    after another on a stream, share it."""
-    _outside_capture("workspace")
+    Made with the kernel object and the card's launch counters, outside any
+    capture (the counters' guard refuses one); its launches, one after
+    another on a stream, share it."""
+    FAMILY.counters(device)
     blocks = BLOCKS_PER_SM * torch.cuda.get_device_properties(
         device).multi_processor_count
     return (torch.zeros(blocks * N_SUMS, dtype=torch.float64, device=device),
             torch.zeros(1, dtype=torch.int32, device=device), blocks)
-
-
-def count_host_call():
-    """One epilogue served by the plain chain on host tensors."""
-    global _cpu_calls
-    _cpu_calls += 1
-
-
-def counts() -> dict:
-    """The kernel's launches on every card (read after a synchronise of
-    the card, so that every launch queued has run) and ``cpu_calls``."""
-    out = dict.fromkeys(USES, 0)
-    for index, c in _LAUNCHES.items():
-        torch.cuda.synchronize(index)
-        for name, n in zip(USES, c.tolist()):
-            out[name] += n
-    out["cpu_calls"] = _cpu_calls
-    return out
-
-
-def reset_counts():
-    """Set every count of :func:`counts` to 0."""
-    global _cpu_calls
-    for index, c in _LAUNCHES.items():
-        torch.cuda.synchronize(index)
-        c.zero_()
-        torch.cuda.synchronize(index)
-    _cpu_calls = 0
-
-
-def _library():
-    lib = load("stage")
-    if lib.stage_epilogue.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.stage_epilogue.argtypes = ([ptr] * 12 + [i32] * 10
-                                       + [ctypes.c_double] * 2 + [i32] * 3
-                                       + [ptr] * 2)
-        lib.stage_epilogue.restype = i32
-        lib.stage_error_string.argtypes = [i32]
-        lib.stage_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _field(z):
@@ -169,7 +107,8 @@ def epilogue(plan: Plan, rh, jadv=None, jh=None, phih=None, uvqh=None,
         raise ValueError("a field the epilogue's uses read is missing")
     dev = rh.device
     ny, w = rh.shape
-    wq = plan.kq.shape[0]
+    q = plan.q
+    wq = q.kq.shape[0]
     cd, rd = rh.dtype, plan.w_d.dtype
     uq = vq = fn = fnw = parts = None
     if rhs:
@@ -189,25 +128,11 @@ def epilogue(plan: Plan, rh, jadv=None, jh=None, phih=None, uvqh=None,
     fields = (ctypes.c_longlong * 24)(*[
         v for z in (phih, jadv if rhs else None, jh, rh, uq, vq, qh, ph)
         for v in _field(z)])
-    lib = _library()
-    c = launch_counter(dev)
-    counter = c.data_ptr() + c.element_size() * (0 if rhs else 1)
-
-    def addr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(dev):
-        err = lib.stage_epilogue(
-            fields, plan.w_d.data_ptr(), plan.w_chi.data_ptr(),
-            plan.wv2.data_ptr(), plan.w_eppsi.data_ptr(),
-            plan.kq.data_ptr(), plan.lq.data_ptr(), addr(fnw), addr(fn),
-            addr(parts), plan.partials.data_ptr(),
-            plan.arrivals.data_ptr(), plan.blocks,
-            ny, w, wq, plan.col0, plan.nx, plan.nreal, plan.nyq,
-            int(plan.zero_jac), int(plan.owner), plan.inv_m, plan.inv_m2,
-            int(rhs), int(sources), int(rd == torch.float64),
-            counter, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("stage_epilogue launch failed: "
-                           + lib.stage_error_string(err).decode())
+    FAMILY.launch(
+        "stage_epilogue", dev, fields, plan.w_d, plan.w_chi, plan.wv2,
+        plan.w_eppsi, q.kq, q.l, fnw, fn, parts, plan.partials,
+        plan.arrivals, plan.blocks, ny, w, wq, q.col0, q.nx, q.nreal, q.nyq,
+        int(plan.zero_jac), int(plan.owner), plan.inv_m, plan.inv_m2,
+        int(rhs), int(sources), int(rd == torch.float64),
+        key="stage" if rhs else "sources")
     return fn, fnw, parts

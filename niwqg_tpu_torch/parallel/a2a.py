@@ -64,9 +64,10 @@ on the host, and a captured graph carries a :class:`Tape` of the parities
 it was captured with (see ``graphs.py``).
 
 The kernel counts its launches on the card, per kind and path, so a
-replayed launch counts as any other: :func:`counts` reads them (a
-synchronise) and :func:`reset_counts` sets them to 0. ``.cpu_calls`` of
-each wrapper counts the calls its plain version served.
+replayed launch counts as any other (``FAMILY``, a ``cuda_build.Family``):
+:func:`counts` reads them (a synchronise) and :func:`reset_counts` sets
+them to 0. ``FAMILY.plain_calls(kind)`` counts the calls of each kind that
+the plain version served.
 """
 
 from __future__ import annotations
@@ -76,7 +77,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..cuda_build import load
+from ..cuda_build import Family
 from ..utils.profiling import span
 
 # wall-clock limit of one device-side wait; past it the kernel traps
@@ -265,33 +266,23 @@ def recv_counts(table, P: int, me: int) -> list:
 # ----------------------------------------------------------------------
 # the kernel's library
 # ----------------------------------------------------------------------
-def _library():
-    lib = load("a2a")
-    fn = lib.a2a_launch_many
-    if fn.argtypes is None:
-        vp, ll, i, u64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                          ctypes.c_ulonglong)
-        fn.argtypes = [i, vp, vp, i, vp, vp]
-        fn.restype = i
-        lib.a2a_plan_create.argtypes = [vp, i, vp, vp, vp, vp, vp, i, i, i,
-                                        i, ll, ll, i, i, u64,
-                                        ctypes.POINTER(vp)]
-        lib.a2a_plan_free.argtypes = [vp]
-        lib.a2a_malloc.argtypes = [ctypes.c_size_t, ctypes.POINTER(vp)]
-        lib.a2a_free.argtypes = [vp]
-        lib.a2a_ipc_get.argtypes = [vp, vp]
-        lib.a2a_ipc_open.argtypes = [vp, ctypes.POINTER(vp)]
-        lib.a2a_ipc_close.argtypes = [vp]
-        lib.a2a_enable_peer_access.argtypes = [i]
-        lib.a2a_error_string.argtypes = [i]
-        lib.a2a_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _ok(lib, err, what):
-    if err != 0:
-        raise RuntimeError(f"all_to_all kernel: {what} failed: "
-                           + lib.a2a_error_string(err).decode())
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+FAMILY = Family(
+    "a2a",
+    {"a2a_launch_many": [_i, _vp, _vp, _i, _vp, _vp],
+     "a2a_plan_create": [_vp, _i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
+                         ctypes.c_longlong, ctypes.c_longlong, _i, _i,
+                         ctypes.c_ulonglong, ctypes.POINTER(_vp)],
+     "a2a_plan_free": [_vp],
+     "a2a_malloc": [ctypes.c_size_t, ctypes.POINTER(_vp)],
+     "a2a_free": [_vp],
+     "a2a_ipc_get": [_vp, _vp],
+     "a2a_ipc_open": [_vp, ctypes.POINTER(_vp)],
+     "a2a_ipc_close": [_vp],
+     "a2a_enable_peer_access": [_i],
+     "a2a_max_ranks": [], "a2a_flag_words": [], "a2a_ipc_handle_bytes": []},
+    keys=[f"{k}_{p}" for k in KINDS for p in PATHS], plain=KINDS)
+_library, _ok = FAMILY.library, FAMILY.check
 
 
 class _DeviceBytes:
@@ -310,19 +301,6 @@ class _Buffers:
 
     def __init__(self, outs, ptrs):
         self.outs, self.ptrs = outs, ptrs
-
-
-# the kernel's launch counters of each card (by index), counted on the
-# card: int64 by (kind, path)
-_LAUNCHES = {}
-
-
-def _launch_counter(device):
-    c = _LAUNCHES.get(device.index)
-    if c is None:
-        c = _LAUNCHES[device.index] = torch.zeros(
-            (len(KINDS), len(PATHS)), dtype=torch.int64, device=device)
-    return c
 
 
 def _layout(kind, shape, nP):
@@ -346,7 +324,6 @@ class _Plan:
 
     def __init__(self, lib, group, kind, shape, dtype, chunks):
         nP = group.nP
-        k = KINDS.index(kind)
         lead, R, W, out_shape = _layout(kind, shape, nP)
         if kind == "reflect":
             table = lambda r: reflect_table(W, R, nP, r, dtype.itemsize)
@@ -366,13 +343,12 @@ class _Plan:
         for r, dev in zip(group.ranks, self.devices):
             tasks, meta = table(r)
             recv = (ctypes.c_int * nP)(*recv_counts(table, nP, r))
-            counter = _launch_counter(dev)
-            count = (counter.data_ptr() + counter.element_size()
-                     * (k * len(PATHS) + PATHS.index(meta["path"])))
+            count = FAMILY.counter(dev, f"{kind}_{meta['path']}")
             h = ctypes.c_void_p()
             _ok(lib, lib.a2a_plan_create(
                 tasks.ctypes.data, len(tasks), outs0, outs1, flags, recv,
-                count, r, nP, k, int(meta["path"] == "aligned"),
+                count, r, nP, KINDS.index(kind),
+                int(meta["path"] == "aligned"),
                 meta["in_pitch"], meta["out_pitch"], group.blocks, dev.index,
                 _TIMEOUT_NS, ctypes.byref(h)), "plan")
             handles.append(h.value)
@@ -671,7 +647,7 @@ def _launch(plan, blocks, group):
     return plan.bufs.outs[parity]
 
 
-def _exchange(fn, ref, kind, z, group: PeerGroup, chunks: int, check):
+def _exchange(ref, kind, z, group: PeerGroup, chunks: int, check):
     """``z`` (this rank's block, or the list of a local group's) through
     ``kind``'s kernel on CUDA, or ``ref`` (every rank's blocks in, every
     rank's out) on the CPU."""
@@ -687,7 +663,7 @@ def _exchange(fn, ref, kind, z, group: PeerGroup, chunks: int, check):
             check(b)
         kinds = {b.device.type for b in blocks}
         if kinds == {"cpu"}:
-            fn.cpu_calls += 1
+            FAMILY.plain_call(kind)
             if many:
                 return ref(blocks)
             # one rank per process: the plain version wants every rank's
@@ -705,15 +681,15 @@ def all_to_all_fwd(z, group: PeerGroup, chunks: int = 1):
     the ranks of ``group``. ``z`` is this rank's block, or the list of all
     ``P`` blocks for a :meth:`PeerGroup.local` group (a list comes back).
     ``chunks`` column chunks per peer; the result does not depend on it."""
-    return _exchange(all_to_all_fwd, all_to_all_fwd_ref, "fwd", z, group,
-                     chunks, lambda b: _check(b, group.nP, 0))
+    return _exchange(all_to_all_fwd_ref, "fwd", z, group, chunks,
+                     lambda b: _check(b, group.nP, 0))
 
 
 def all_to_all_inv(z, group: PeerGroup, chunks: int = 1):
     """``(..., P*R, W)`` column pencil -> ``(..., R, P*W)`` row block: the
     inverse of :func:`all_to_all_fwd`."""
-    return _exchange(all_to_all_inv, all_to_all_inv_ref, "inv", z, group,
-                     chunks, lambda b: _check(b, group.nP, 1))
+    return _exchange(all_to_all_inv_ref, "inv", z, group, chunks,
+                     lambda b: _check(b, group.nP, 1))
 
 
 # the reals of a vector that :func:`all_reduce` sends a peer, padded to this
@@ -751,10 +727,9 @@ def all_reduce(t, group: PeerGroup, op: str = "sum"):
     unchecked = lambda x: None
     if {x.device.type for x in ts} != {"cuda"}:
         ref = lambda vs: [all_reduce_ref(vs, op) for _ in vs]
-        return _exchange(all_reduce, ref, "gather", t, group, 1, unchecked)
-    rows = _exchange(all_reduce, None, "gather",
-                     [_gather_block(x, group.nP) for x in ts], group, 1,
-                     unchecked)
+        return _exchange(ref, "gather", t, group, 1, unchecked)
+    rows = _exchange(None, "gather", [_gather_block(x, group.nP) for x in ts],
+                     group, 1, unchecked)
     outs = [all_reduce_ref(list(r.view(x.dtype)[:, :x.numel()]), op)
             .reshape(x.shape) for r, x in zip(rows, ts)]
     return outs if many else outs[0]
@@ -773,13 +748,8 @@ def reflect_exchange(z, group: PeerGroup):
     rows, or the list of a :meth:`PeerGroup.local` group's. One launch of
     K2's reflect kind on CUDA tensors, :func:`reflect_exchange_ref` on CPU
     tensors."""
-    return _exchange(reflect_exchange, reflect_exchange_ref, "reflect", z,
-                     group, 1, _check_reflect)
-
-
-_WRAPPERS = (all_to_all_fwd, all_to_all_inv, all_reduce, reflect_exchange)
-for _fn in _WRAPPERS:
-    _fn.cpu_calls = 0
+    return _exchange(reflect_exchange_ref, "reflect", z, group, 1,
+                     _check_reflect)
 
 
 def counts() -> dict:
@@ -788,23 +758,10 @@ def counts() -> dict:
     kind and path (``"fwd_aligned"``, ..., ``"reflect_ragged"``), per kind
     (``"fwd"``, ``"inv"``, ``"gather"``, ``"reflect"``), and ``cpu_calls``,
     the calls of every wrapper its plain version served."""
-    names = [f"{k}_{p}" for k in KINDS for p in PATHS]
-    out = dict.fromkeys(names, 0)
-    for index, c in _LAUNCHES.items():
-        torch.cuda.synchronize(index)
-        for name, n in zip(names, c.flatten().tolist()):
-            out[name] += n
+    out = FAMILY.counts()
     for k in KINDS:
         out[k] = sum(out[f"{k}_{p}"] for p in PATHS)
-    out["cpu_calls"] = sum(f.cpu_calls for f in _WRAPPERS)
     return out
 
 
-def reset_counts():
-    """Set every count of :func:`counts` to 0."""
-    for index, c in _LAUNCHES.items():
-        torch.cuda.synchronize(index)
-        c.zero_()
-        torch.cuda.synchronize(index)
-    for f in _WRAPPERS:
-        f.cpu_calls = 0
+reset_counts = FAMILY.reset

@@ -108,13 +108,13 @@ def transport():
     a2a_single = Mesh.all_to_all_single
     all_reduce, all_gather = Mesh.all_reduce, Mesh.all_gather
 
-    def k2(fn, ref, kind, z, group, chunks, check):
+    def k2(ref, kind, z, group, chunks, check):
         tally.add(kind, z)
         if kind in TRANSPOSES:
             tally.log.append((kind, tuple(z.shape), _name(z.dtype), chunks))
         inside_k2[0] += 1
         try:
-            return exchange(fn, ref, kind, z, group, chunks, check)
+            return exchange(ref, kind, z, group, chunks, check)
         finally:
             inside_k2[0] -= 1
 
@@ -158,15 +158,6 @@ def transport():
         csplit_mm._dispatch = dispatch
 
 
-def _k2_counts(device) -> dict:
-    """K2's launches by kind counted on the card, and its plain-version
-    calls."""
-    c = a2a.counts() if device.type == "cuda" else {
-        k: 0 for k in a2a.KINDS}
-    return {k: c.get(k, 0) for k in a2a.KINDS} | {
-        "cpu_calls": sum(f.cpu_calls for f in a2a._WRAPPERS)}
-
-
 def step_census(m):
     """One eager step of model ``m`` on its mesh with both tallies on;
     returns the record (the JAX script's keys where the quantity is
@@ -177,7 +168,7 @@ def step_census(m):
     tr = K.tr
     cen = Census(tr)
     saved = {a: K.__dict__[a] for a in ALIASES if a in K.__dict__}
-    c0 = _k2_counts(K.device)
+    c0 = a2a.counts()
     with transport() as tally:
         K.tr = cen
         for a, fn in saved.items():
@@ -192,7 +183,7 @@ def step_census(m):
                 setattr(K, a, fn)
         if K.device.type == "cuda":
             torch.cuda.synchronize(K.device)
-    c1 = _k2_counts(K.device)
+    c1 = a2a.counts()
     launched = {k: c1[k] - c0[k] for k in c1}
     counts = cen.counts
     nx = K.params.nx

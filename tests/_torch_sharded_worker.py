@@ -244,7 +244,7 @@ def suite_family(mesh):
     from niwqg_tpu_torch.ops import spectral
 
     res = {}
-    fwd, inv = a2a.all_to_all_fwd, a2a.all_to_all_inv
+    plain = a2a.FAMILY.plain_calls
     launches = lambda: sum(a2a.counts()[k] for k in a2a.KINDS)
     # the Hermitian projections' exchanges of mirror columns (each one
     # all_to_all_single, on every route)
@@ -276,10 +276,10 @@ def suite_family(mesh):
                                 [:, NX // 2 + 1:]).max())
                 for f in ("qh", "ch", "ph"))
         # one step's transposes and reflections, counted on the host
-        n0 = (fwd.cpu_calls, inv.cpu_calls, launches(), reflections[0])
+        n0 = (plain("fwd"), plain("inv"), launches(), reflections[0])
         m.run_steps(1)
-        res[f"{name}_per_step"] = (fwd.cpu_calls - n0[0],
-                                   inv.cpu_calls - n0[1],
+        res[f"{name}_per_step"] = (plain("fwd") - n0[0],
+                                   plain("inv") - n0[1],
                                    launches() - n0[2],
                                    reflections[0] - n0[3])
     spectral.reflect_spectrum = reflect
@@ -438,7 +438,7 @@ def mxu_k2(mesh, pkg, ic):
     from chip_smoke import MXU_MESH_MODEL, flagship, qg_flagship
     from niwqg_tpu_torch.parallel import a2a
 
-    fwd, inv = a2a.all_to_all_fwd, a2a.all_to_all_inv
+    plain = a2a.FAMILY.plain_calls
     res = {}
     for name in ("CoupledModel", "UnCoupledModel", "QLModel", "YBJModel",
                  "QGModel"):
@@ -447,9 +447,9 @@ def mxu_k2(mesh, pkg, ic):
              else flagship(getattr(pkg, name), ic, nx=NX,
                            packet=name != "CoupledModel", **kw))
         launches = lambda: sum(a2a.counts()[k] for k in a2a.KINDS)
-        n0 = (fwd.cpu_calls, inv.cpu_calls, launches())
+        n0 = (plain("fwd"), plain("inv"), launches())
         m.run_steps(1)
-        res[f"k2_{name}"] = (fwd.cpu_calls - n0[0], inv.cpu_calls - n0[1],
+        res[f"k2_{name}"] = (plain("fwd") - n0[0], plain("inv") - n0[1],
                              launches() - n0[2])
     return res
 
@@ -617,8 +617,8 @@ def suite_mesh_graph(mesh):
     res["reflect_equal"] = torch.equal(got, reflect_spectrum(zb, mesh))
     res["reflect_global"] = mesh.gather_cols(got).numpy()
     res["reflect_input"] = zg.numpy()
-    res["plain_calls"] = (a2a.all_reduce.cpu_calls,
-                          a2a.reflect_exchange.cpu_calls)
+    res["plain_calls"] = (a2a.FAMILY.plain_calls("gather"),
+                          a2a.FAMILY.plain_calls("reflect"))
 
     # (ii) each model's run() and run_steps on each route: the reductions
     # of run() through K2, and the library's (sums and maxima)
@@ -630,11 +630,12 @@ def suite_mesh_graph(mesh):
             model = MXU_CASES[name][0]
             fields, series = MXU_HELD[model]
             kw = dict(mesh=mesh, device="cpu", transform_opts=dict(opts))
-            calls = a2a.all_reduce.cpu_calls
+            calls = a2a.FAMILY.plain_calls("gather")
             with count_collectives() as lib:
                 m = mxu_case(pkg, ic, name, **kw)
             res[f"run_{pre}{name}_reductions"] = (
-                a2a.all_reduce.cpu_calls - calls, lib["sum"] + lib["max"])
+                a2a.FAMILY.plain_calls("gather") - calls,
+                lib["sum"] + lib["max"])
             for k in fields:  # collectives: every rank
                 res[f"run_{pre}{name}_{k}"] = getattr(m, k)
             res[f"run_{pre}{name}_{series}"] = m.diagnostics[series]["value"]
@@ -663,8 +664,11 @@ def graph_pins(mesh, pkg, ic):
     from niwqg_tpu_torch.ops import csplit_mm
     from niwqg_tpu_torch.parallel import a2a
 
-    fns = (a2a.all_to_all_fwd, a2a.all_to_all_inv, a2a.all_reduce,
-           a2a.reflect_exchange, csplit_mm.csplit_matmul)
+    def plain():
+        """The plain versions' calls: K2's by kind, then K1's."""
+        return [a2a.FAMILY.plain_calls(k) for k in a2a.KINDS] + [
+            csplit_mm.FAMILY.plain_calls()]
+
     res = {}
     for run in ((PENCIL_FLAGSHIP,) + FAMILY_MESH_RUNS + MXU_MESH_RUNS
                 + (DEFAULT_FLAGSHIP,) + DEFAULT_FAMILY_MESH_RUNS
@@ -679,11 +683,11 @@ def graph_pins(mesh, pkg, ic):
                         tdiags=1, **kw)
         m.run_steps(1)
         for graph, diags in (("A", False), ("B", True)):
-            n0 = [f.cpu_calls for f in fns]
+            n0 = plain()
             with count_collectives() as lib:
                 m._runner.advance(1, diags=diags)
-            res[f"pin_{run.key}_{graph}"] = [f.cpu_calls - n for f, n in
-                                             zip(fns, n0)] + [
+            res[f"pin_{run.key}_{graph}"] = [b - a for a, b in
+                                             zip(n0, plain())] + [
                 lib[k] for k in LIB_KINDS]
         if run.base is not None:
             K = m.kernel

@@ -51,10 +51,10 @@ def test_fwd_ref_matches_jax_kernel(mesh, chunks, lead):
     assert np.array_equal(np.concatenate([g.numpy() for g in got], axis=-1),
                           want)
     # the wrapper on host tensors takes the plain version
-    n = a2a.all_to_all_fwd.cpu_calls
+    n = a2a.FAMILY.plain_calls("fwd")
     group = a2a.PeerGroup.local(["cpu"] * NDEV)
     via = a2a.all_to_all_fwd(_blocks(z, axis=-2), group, chunks=chunks)
-    assert a2a.all_to_all_fwd.cpu_calls == n + 1
+    assert a2a.FAMILY.plain_calls("fwd") == n + 1
     assert all(torch.equal(a, b) for a, b in zip(via, got))
 
 
@@ -73,10 +73,10 @@ def test_inv_ref_matches_jax_kernel(mesh, chunks, lead):
     got = a2a.all_to_all_inv_ref(_blocks(z, axis=-1))
     assert np.array_equal(np.concatenate([g.numpy() for g in got], axis=-2),
                           want)
-    n = a2a.all_to_all_inv.cpu_calls
+    n = a2a.FAMILY.plain_calls("inv")
     group = a2a.PeerGroup.local(["cpu"] * NDEV)
     via = a2a.all_to_all_inv(_blocks(z, axis=-1), group, chunks=chunks)
-    assert a2a.all_to_all_inv.cpu_calls == n + 1
+    assert a2a.FAMILY.plain_calls("inv") == n + 1
     assert all(torch.equal(a, b) for a, b in zip(via, got))
 
 
@@ -142,10 +142,10 @@ def test_cuda_blocks_launch_the_kernel_or_raise(monkeypatch):
     monkeypatch.setenv("PATH", "")
     monkeypatch.delenv("NVCC", raising=False)
     group = a2a.PeerGroup.local(["cuda:0"] * NDEV)
-    n = (a2a.all_to_all_fwd.cpu_calls, a2a.counts()["fwd"])
+    n = (a2a.FAMILY.plain_calls("fwd"), a2a.counts()["fwd"])
     with pytest.raises(RuntimeError, match="nvcc"):
         a2a.all_to_all_fwd([_FakeCudaBlock() for _ in range(NDEV)], group)
-    assert (a2a.all_to_all_fwd.cpu_calls, a2a.counts()["fwd"]) == n
+    assert (a2a.FAMILY.plain_calls("fwd"), a2a.counts()["fwd"]) == n
     # a mix of host and card blocks is refused outright
     with pytest.raises(ValueError, match="unsupported devices"):
         a2a.all_to_all_fwd(
@@ -301,13 +301,13 @@ def test_plain_all_reduce_of_a_local_group():
     group = a2a.PeerGroup.local(["cpu"] * NDEV)
     rng = np.random.default_rng(3)
     ts = [torch.as_tensor(rng.standard_normal((2, 3))) for _ in range(NDEV)]
-    calls = a2a.all_reduce.cpu_calls
+    calls = a2a.FAMILY.plain_calls("gather")
     for op, fold in (("sum", torch.add), ("max", torch.maximum)):
         want = ts[0]
         for t in ts[1:]:
             want = fold(want, t)
         got = a2a.all_reduce(ts, group, op)
         assert len(got) == NDEV and all(torch.equal(g, want) for g in got)
-    assert a2a.all_reduce.cpu_calls == calls + 2
+    assert a2a.FAMILY.plain_calls("gather") == calls + 2
     with pytest.raises(ValueError, match="'sum' or 'max'"):
         a2a.all_reduce(ts, group, "min")

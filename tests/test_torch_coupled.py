@@ -92,12 +92,12 @@ def test_k1_configuration_f32_matches_jax(monkeypatch):
     JAX with the Pallas kernel in interpret mode; and the port counts the
     same 40 K1 contractions per step that JAX traces."""
     kw = dict(backend="mxu", dtype=np.float32, precision="split")
-    calls0 = csplit_mm.csplit_matmul.cpu_calls
+    calls0 = csplit_mm.FAMILY.plain_calls()
     t = _flagship(TCoupled, tic, 256, device="cpu", transform_opts=K1_OPTS,
                   **kw)
-    calls_set = csplit_mm.csplit_matmul.cpu_calls - calls0
+    calls_set = csplit_mm.FAMILY.plain_calls() - calls0
     t.run_steps(3)
-    per_step = (csplit_mm.csplit_matmul.cpu_calls - calls0 - calls_set) / 3
+    per_step = (csplit_mm.FAMILY.plain_calls() - calls0 - calls_set) / 3
 
     traced = []
     orig = pallas_mm.csplit_matmul

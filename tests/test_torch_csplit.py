@@ -172,12 +172,12 @@ def test_prepared_call_equals_six_plane_call_on_host(shape):
     ar, ai, br, bi = _inputs(M, K, N, seed=5)
     planes = [torch.as_tensor(p) for p in _split_np(br) + _split_np(bi)]
     a = [torch.as_tensor(ar), torch.as_tensor(ai)]
-    calls = csplit_mm.csplit_matmul.cpu_calls
+    calls = csplit_mm.FAMILY.plain_calls()
     re, im = csplit_mm.csplit_matmul(*a, *planes)
     pre, pim = csplit_mm.csplit_matmul_prepared(
         *a, csplit_mm.prepare_b(*planes))
     assert torch.equal(re, pre) and torch.equal(im, pim)
-    assert csplit_mm.csplit_matmul.cpu_calls == calls + 2
+    assert csplit_mm.FAMILY.plain_calls() == calls + 2
     with pytest.raises(ValueError):  # A's K against the prepared planes' K
         csplit_mm.csplit_matmul_prepared(
             torch.zeros((M, K + 1)), torch.zeros((M, K + 1)),
@@ -229,8 +229,8 @@ def test_transform_prepares_its_constants_once():
     z = np.random.default_rng(4).standard_normal((2, 256, 256)).astype(
         np.float32)
     zt = torch.complex(torch.as_tensor(z), torch.as_tensor(z[::-1].copy()))
-    calls = csplit_mm.csplit_matmul.cpu_calls
+    calls = csplit_mm.FAMILY.plain_calls()
     out = tr.fft2(zt)
-    assert csplit_mm.csplit_matmul.cpu_calls == calls + 4  # 2 fields x 2
+    assert csplit_mm.FAMILY.plain_calls() == calls + 4  # 2 fields x 2
     want = plain.fft2(zt)
     assert (out - want).abs().max() <= 1e-5 * want.abs().max()

@@ -228,8 +228,8 @@ def k1_calls(monkeypatch):
 @pytest.mark.parametrize("cfg", list(K1_CONFIGS))
 def test_k1_calls_per_transform_match_jax_trace(cfg, op, k1_calls):
     """Two fields (max_batch=1: one call each) through one transform: the
-    port's K1 calls (``cpu_calls`` on the host) have JAX's traced Pallas
-    calls' count and shapes, and the output JAX's (1e-5)."""
+    port's K1 calls (``FAMILY.plain_calls()`` on the host) have JAX's
+    traced Pallas calls' count and shapes, and the output JAX's (1e-5)."""
     jax_calls, port_calls = k1_calls
     kw = dict(K1_CONFIGS[cfg], precision="split", use_pallas=True)
     jtr = jfft.MXUTransform(K1_NX, np.float32, pallas_interpret=True, **kw)
@@ -238,9 +238,9 @@ def test_k1_calls_per_transform_match_jax_trace(cfg, op, k1_calls):
     arr = _inputs(op, K1_NX, seed=80, dtype=np.float32, generic=False)
     jin = C.from_complex(arr) if np.iscomplexobj(arr) else arr
     jax.make_jaxpr(getattr(jtr, op))(jin)
-    calls0 = csplit_mm.csplit_matmul.cpu_calls
+    calls0 = csplit_mm.FAMILY.plain_calls()
     tout = getattr(ttr, op)(torch.as_tensor(arr)).numpy()
-    assert csplit_mm.csplit_matmul.cpu_calls - calls0 == len(port_calls)
+    assert csplit_mm.FAMILY.plain_calls() - calls0 == len(port_calls)
     assert Counter(port_calls) == Counter(jax_calls)
     n = K1_NX
     if op in ("fft2", "ifft2"):   # the x-pass (swap: both passes) dense

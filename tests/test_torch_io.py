@@ -285,8 +285,8 @@ def test_k1_launches_per_diagnostics_sample_match_jax(monkeypatch):
     kw = dict(nx=256, backend="mxu", dtype=np.float32, precision="split")
     t = _build(tpkg, tic, "CoupledModel", device="cpu",
                transform_opts=K1_OPTS, **kw)
-    counter = csplit_mm.csplit_matmul
-    calls0 = counter.cpu_calls
+    counter = csplit_mm.FAMILY
+    calls0 = counter.plain_calls()
     t._diag_fn(t.state, t.state.t)
     traced = []
     orig = pallas_mm.csplit_matmul
@@ -299,7 +299,7 @@ def test_k1_launches_per_diagnostics_sample_match_jax(monkeypatch):
     j = jpkg.CoupledModel.Model(
         transform_opts=dict(K1_OPTS, pallas_interpret=True), **kw)
     jax.make_jaxpr(j._diag_fn)(j.kernel.zero_state(), 0.0)
-    assert counter.cpu_calls - calls0 == len(traced) == K1_PER_DIAG
+    assert counter.plain_calls() - calls0 == len(traced) == K1_PER_DIAG
 
 
 def test_imports_and_runs_without_h5py():

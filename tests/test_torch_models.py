@@ -145,12 +145,12 @@ def test_k1_configuration_f32_matches_jax(name, faithful, monkeypatch):
     tmod, jmod = MODELS[name]
     kw = dict(backend="mxu", dtype=np.float32, precision="split")
     quirks = {} if faithful is None else {"faithful_quirks": faithful}
-    counter = csplit_mm.csplit_matmul
+    counter = csplit_mm.FAMILY
     t = _flagship(tmod, tic, 256, packet=True, device="cpu",
                   transform_opts=K1_OPTS, **kw, **quirks)
-    calls0 = counter.cpu_calls
+    calls0 = counter.plain_calls()
     t.run_steps(1)
-    per_step = counter.cpu_calls - calls0
+    per_step = counter.plain_calls() - calls0
     # the host runs the plain version
     assert csplit_mm.counts()["launches"] == 0
 

@@ -75,9 +75,9 @@ def test_k1_calls_per_step_match_jax_trace(model, cfg, k1_calls):
             **kw).kernel
     jax.make_jaxpr(jk.step)(jk.zero_state())
     del port_calls[:]
-    calls0 = csplit_mm.csplit_matmul.cpu_calls
+    calls0 = csplit_mm.FAMILY.plain_calls()
     t.run_steps(1)
-    assert csplit_mm.csplit_matmul.cpu_calls - calls0 == len(port_calls)
+    assert csplit_mm.FAMILY.plain_calls() - calls0 == len(port_calls)
     assert Counter(port_calls) == Counter(jax_calls) == K1_PER_STEP[
         (model, cfg)]
     # the pins chip_smoke.py phase 11(c) holds the card to

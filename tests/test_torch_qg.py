@@ -125,7 +125,7 @@ def test_k1_configuration_sends_no_contraction(monkeypatch):
     kw = dict(backend="mxu", dtype=np.float32, precision="split", nx=256,
               L=2 * np.pi * 200e3, dt=157.0, tmax=157.0 * 10, beta=1e-11,
               U=-0.05, passive_scalar=True)
-    calls0 = csplit_mm.csplit_matmul.cpu_calls
+    calls0 = csplit_mm.FAMILY.plain_calls()
     t = TQG.Model(device="cpu", transform_opts=K1_OPTS, **kw)
     q = tic.LambDipole(t, U=0.05, R=2 * np.pi / (10 * 2 * np.pi / t.L))
     c = np.real(tic.PlaneWave(t, k=10 * 2 * np.pi / t.L,
@@ -133,7 +133,7 @@ def test_k1_configuration_sends_no_contraction(monkeypatch):
     t.set_q(q)
     t.set_c(c)
     t.run_steps(1)
-    assert csplit_mm.csplit_matmul.cpu_calls == calls0
+    assert csplit_mm.FAMILY.plain_calls() == calls0
 
     traced = []
     orig = pallas_mm.csplit_matmul

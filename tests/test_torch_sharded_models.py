@@ -168,9 +168,9 @@ def _jax_k2_per_step(monkeypatch, jmesh, kind):
 def test_k2_launches_per_step_pinned_to_jax(fam, jmesh, monkeypatch, kind,
                                             model):
     """The port's K2 calls in one step (its plain version on the host,
-    counted by ``cpu_calls``; no launch) equal JAX's calls of its Pallas
-    all-to-all in one traced step, and the table ``chip_smoke.py`` holds
-    the card to."""
+    counted by ``a2a.FAMILY.plain_calls``; no launch) equal JAX's calls of
+    its Pallas all-to-all in one traced step, and the table
+    ``chip_smoke.py`` holds the card to."""
     fwd, inv, launches, _ = (int(x) for x in fam[f"{kind}_k2_per_step"])
     assert launches == 0
     assert (fwd, inv) == _jax_k2_per_step(monkeypatch, jmesh, kind) \

@@ -196,37 +196,49 @@ LAYOUTS = {
 }
 
 
-def _l_dy_of(plan, ny):
-    """``l_dy`` as ``csrc/stage.cu`` makes it from the plan's numbers."""
-    wq = plan.kq.shape[0]
-    cg = plan.col0 + np.arange(wq)
-    out = np.repeat(plan.lq.numpy()[:, None], wq, axis=1)
-    out[:, cg >= plan.nreal] = 0.0
-    row = out[ny // 2]
-    if plan.nyq == 1:
-        row[(cg >= 1) & (cg < plan.nx // 2)] = 0.0
-    elif plan.nyq == 2:
-        row[(cg != 0) & (cg != plan.nx // 2)] = 0.0
-    return out
+def l_dy_from_grid(K):
+    """``l_dy`` from the grid's host table of ``l``: the Nyquist row's
+    interior columns zeroed in the half layout, all but ``k = 0, nx/2``
+    under ``pair_inverse``, then cut to the q side's block (the half
+    layout's padded columns zero)."""
+    g, nx = K.grid, K.params.nx
+    l = g.l_np.copy()
+    if K.q_half or K.pair_inverse:
+        l[g.ny // 2, 1:nx // 2] = 0.0
+    if K.pair_inverse:
+        l[g.ny // 2, nx // 2 + 1:] = 0.0
+    cut = g.half_np(l, K.layout.pad) if K.q_half else g.spec_np(l)
+    return torch.as_tensor(np.ascontiguousarray(cut).astype(K.dtype))
+
+
+def _held_l_dy(K):
+    """The layout's one ``l_dy`` is the grid's table, and the plain
+    chain's."""
+    assert torch.equal(K.layout.l_dy(), l_dy_from_grid(K))
+    assert torch.equal(K._l_dy, l_dy_from_grid(K))
 
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
 def test_plan_follows_the_layout(layout):
     K = LAYOUTS[layout]()
     plan, g = K._stage_plan, K.grid
+    q = plan.q
     ny, wq = K._qshape
     nP = 1 if K.mesh is None else K.mesh.nP
     rank = 0 if K.mesh is None else K.mesh.rank
-    assert plan.kq.shape == (wq,) and plan.lq.shape == (ny,)
-    assert plan.col0 == rank * wq
-    assert plan.nx == 32
-    assert plan.nreal == (17 if K.q_half else 32)
+    assert q is K.layout is K._plan.q
+    assert q.kq.shape == (wq,) and q.l.shape == (ny,)
+    assert q.col0 == rank * wq
+    assert q.nx == 32
+    assert q.nreal == (17 if K.q_half else 32)
+    assert q.mirror == tuple(c - q.col0 for c in (0, 16)
+                             if q.col0 <= c < q.col0 + wq)
     assert plan.owner == g.owns_mean_mode == (rank == 0)
     assert plan.zero_jac == K.physics.zero_mean_jac_psi_phi
     # the q side's tables as the plain chain reads them
-    assert torch.equal(plan.kq, K.qtab.k[0])
-    assert torch.equal(torch.as_tensor(_l_dy_of(plan, ny)),
-                       K._l_dy.expand(ny, wq))
+    assert torch.equal(q.kq, K.qtab.k[0])
+    assert torch.equal(q.l, g.l[:, 0])
+    _held_l_dy(K)
     assert torch.equal(plan.w_eppsi, K._w_eppsi.expand(ny, wq))
     # the wave side's: this rank's columns of the full spectrum
     for t, ref in ((plan.w_d, K._w_d), (plan.w_chi, K._w_chi),
@@ -240,6 +252,12 @@ def test_plan_follows_the_layout(layout):
     assert plan.partials is None and plan.blocks == 0
 
 
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_l_dy_is_the_grid_table(name):
+    # the derive's layouts (tests/test_torch_derive_fused.py)
+    _held_l_dy(_model(name, 32, np.float32, "cpu").kernel)
+
+
 def test_host_tensors_take_the_plain_chain():
     m = _model("coupled_half", 32, np.float64, "cpu")
     K = m.kernel
@@ -251,7 +269,7 @@ def test_host_tensors_take_the_plain_chain():
     K.nonlinear(qh, D)
     K.stage_source_parts(qh, phih, D)
     c = stage_fused.counts()
-    assert c["cpu_calls"] == 3
+    assert c["cpu_calls"] == stage_fused.FAMILY.plain_calls("epilogue") == 3
     assert all(c[k] == 0 for k in stage_fused.USES)
     assert profiling.counters().get("step.stage_fused", 0) == before
 
