@@ -227,7 +227,18 @@ Phases (any failure exits non-zero):
      one sources-only a sample); phase 13 checks it on every rank of the
      pencil flagship and times rank 1's (``mesh_stage``); phase 4 and
      every ``_runs_on_mesh`` run hold its launches to ``stage_use`` a step
-     (``stage_report``).
+     (``stage_report``). Then the QG model's fused stage gaps
+     (``csrc/qg_stage.cu``, ``niwqg_tpu_torch/ops/qg_fused.py``) on
+     ``qg_flagship``'s half layout (``qg_phase``): every batch, right-hand
+     side and ``ph`` of the pack, the products and stages 1-4, and two whole
+     steps' fields, bit for bit the plain chain, the budget partials within
+     STAGE_PART_LIMIT (``qg_gaps``); each use timed beside its bound and
+     its plain chain, and a whole step fused and plain; the launches by use
+     (QG_PER_STEP a step) and ``step.qg_fused`` in eager steps, captures and
+     replays of graphs A and B. Phase 13 checks them on every rank of QG +
+     scalar at 4096² and times rank 1's (4096, 513) block (``mesh_qg``);
+     every ``_runs_on_mesh`` run holds their launches to ``qg_use`` a step
+     (``qg_report``).
 
 Every ``run_steps``, ``run`` and ``run_with_snapshots`` above replays
 the step's CUDA graphs (``niwqg_tpu_torch/graphs.py``), on one card, on
@@ -1619,6 +1630,7 @@ def _runs_on_mesh(torch, mesh, runs, after=None):
     from niwqg_tpu_torch import InitialConditions as ic
     from niwqg_tpu_torch.ops import csplit_mm as mm
     from niwqg_tpu_torch.ops import derive_fused as dv
+    from niwqg_tpu_torch.ops import qg_fused as qf
     from niwqg_tpu_torch.ops import stage_fused as sf
     from niwqg_tpu_torch.parallel import a2a
 
@@ -1634,6 +1646,7 @@ def _runs_on_mesh(torch, mesh, runs, after=None):
         mm.reset_counts()
         dv.reset_counts()
         sf.reset_counts()
+        qf.reset_counts()
         kw = {k: dict(v) if isinstance(v, dict) else v
               for k, v in run.build.items()}
         t0 = time.perf_counter()
@@ -1642,10 +1655,11 @@ def _runs_on_mesh(torch, mesh, runs, after=None):
         torch.cuda.synchronize()
         out[f"{key}_t_build"] = time.perf_counter() - t0
         n_set, d_set, s_set = launches(), derive_counts(), stage_counts()
+        q_set = qg_counts()
         m.run_steps(WARM_STEPS)
         torch.cuda.synchronize()
         n_warm, d_warm = launches() - n_set, derive_counts() - d_set
-        s_warm = stage_counts() - s_set
+        s_warm, q_warm = stage_counts() - s_set, qg_counts() - q_set
         warm = {k: getattr(m, k) for k in fields}  # collectives
         mesh.barrier()
         t0 = time.perf_counter()
@@ -1656,9 +1670,11 @@ def _runs_on_mesh(torch, mesh, runs, after=None):
         n_timed = launches() - n_set - n_warm
         d_timed = derive_counts() - d_set - d_warm
         s_timed = stage_counts() - s_set - s_warm
+        q_timed = qg_counts() - q_set - q_warm
         end = {k: getattr(m, k) for k in fields}
         out[f"{key}_finite"] = all(np.isfinite(v).all() for v in end.values())
         n_census, d_census, s_census = n_timed * 0, d_timed * 0, s_timed * 0
+        q_census = q_timed * 0
         if run.census:
             # one eager step with the communication census on (a step of
             # the run: its launches count)
@@ -1666,9 +1682,11 @@ def _runs_on_mesh(torch, mesh, runs, after=None):
 
             before, d_before, s_before = (launches(), derive_counts(),
                                           stage_counts())
+            q_before = qg_counts()
             census = step_census(m)
             n_census, d_census = launches() - before, derive_counts() - d_before
             s_census = stage_counts() - s_before
+            q_census = qg_counts() - q_before
             del census["transposes"]
             out[f"{key}_census"] = json.dumps(census)
             out[f"{key}_census_ok"] = all(mesh.all_gather_object(
@@ -1699,6 +1717,8 @@ def _runs_on_mesh(torch, mesh, runs, after=None):
         out[f"{key}_derive_set_use"] = derive_set_use(m.kernel)
         out[f"{key}_stage"] = np.stack([s_set, s_warm, s_timed, s_census])
         out[f"{key}_stage_use"] = stage_use(m.kernel)
+        out[f"{key}_qg"] = np.stack([q_set, q_warm, q_timed, q_census])
+        out[f"{key}_qg_use"] = qg_use(m.kernel)
         out.update({
             f"{key}_n_set": n_set, f"{key}_n_warm": n_warm,
             f"{key}_n_timed": n_timed, f"{key}_n_ckpt": n_ckpt,
@@ -2511,6 +2531,7 @@ def mesh_checks(r, run, ref, layout):
                   get("derive_set_use"), census=run.census)
     stage_report(run.label, *get("stage"), int(get("stage_use")),
                  census=run.census)
+    qg_report(run.label, *get("qg"), get("qg_use"), census=run.census)
     if ref is not None:
         d = {k: float(np.abs(np.asarray(get(k)) - v).max()
                       / np.abs(v).max()) for k, v in ref.items()}
@@ -2913,7 +2934,9 @@ def _big_mesh_rank(rank, port, outdir):
         "big_flagship": lambda group, m: {
             **mesh_derive(torch, mesh, m, "big_flagship"),
             **mesh_stage(torch, mesh, m, "big_flagship")},
-        "big_qg": lambda group, m: _big_k2(torch, mesh, rank, group)})
+        "big_qg": lambda group, m: {
+            **_big_k2(torch, mesh, rank, group),
+            **mesh_qg(torch, mesh, m, "big_qg")}})
     rss = max(mesh.all_gather_object(host_peak_gb()))
     if rank == 0:
         np.savez(os.path.join(outdir, "big_mesh.npz"),
@@ -2982,6 +3005,13 @@ def big_mesh_phase(torch, refs):
         recs=json.loads(str(r["big_flagship_stage_recs"])),
         launches=int(sum(np.asarray(r[f"{run.key}_stage"])[:, :2].sum()
                          for run in runs)))
+    qg_held(json.loads(str(r["big_qg_qg_gaps"])), f"phase 13: the fused QG "
+            f"gaps on every rank of QG + scalar at {NX_BIG}² (the worst of "
+            "each reading over the ranks)")
+    recs["qg"] = dict(
+        recs=json.loads(str(r["big_qg_qg_recs"])),
+        launches=np.sum([np.asarray(r[f"{run.key}_qg"])[:, :3]
+                         for run in runs], axis=(0, 1)))
     for name, shape in (("big", K2_BIG), ("big_qg", QG_K2_BIG)):
         nbytes = int(np.prod(shape)) * 8
         bound, t_hbm, t_link = k2_bound_ms(nbytes, ncards)
@@ -3303,19 +3333,21 @@ def stage_record(torch, K, layout, inputs, reps=DERIVE_REPS):
                 plain_ms=round(pms, 4))
 
 
-def stage_held(gaps, label):
-    """Check ``stage_gaps``' readings: Fn, Fnw and a second launch bit for
-    bit, each partial within STAGE_PART_LIMIT."""
+def stage_held(gaps, label, what="Fn, Fnw",
+               reported="the plain chain's own sums"):
+    """Check ``stage_gaps``' (or ``qg_gaps``') readings: ``what`` and a
+    second launch bit for bit, each partial (``.part.``) within
+    STAGE_PART_LIMIT; the ``plain.`` readings, ``reported``, logged."""
     held = {k: v for k, v in gaps.items() if not k.startswith("plain.")}
     worst = max((v for k, v in held.items() if ".part." in k), default=0.0)
     exact = {k: v for k, v in held.items() if ".part." not in k}
     plain = max((v for k, v in gaps.items() if k.startswith("plain.")),
                 default=0.0)
-    log(f"  {label}: Fn, Fnw largest gap {max(exact.values()):g} ulps, "
-        f"partials {worst:.3f} (limit {STAGE_PART_LIMIT}; the plain chain's "
-        f"own sums {plain:.3f}), {len(held)} readings")
-    check(not any(exact.values()), f"{label}: the fused stage epilogue is "
-          f"not bitwise its plain chain: "
+    log(f"  {label}: {what} largest gap {max(exact.values()):g} ulps, "
+        f"partials {worst:.3f} (limit {STAGE_PART_LIMIT}; {reported} "
+        f"{plain:.3f}), {len(held)} readings")
+    check(not any(exact.values()), f"{label}: the fused kernels are not "
+          f"bitwise their plain chain: "
           f"{ {k: v for k, v in exact.items() if v} }")
     check(worst <= STAGE_PART_LIMIT, f"{label}: a budget partial is "
           f"{worst:.3f} from the float64 total of its terms")
@@ -3506,6 +3538,327 @@ def mesh_stage(torch, mesh, m, key, seed=17):
             f"{key}_stage_recs": json.dumps(every[1])}
 
 
+# -- the QG model's fused stage gaps (csrc/qg_stage.cu, ops/qg_fused.py) ------
+
+# QG's launches a step on the card, by use (qg_fused.USES): one pack, and a
+# products and a stage launch each ETDRK4 stage
+QG_PER_STEP = (1, 4, 4)
+# phase 14: steps of each kind the QG launches are pinned over
+QG_RUN_STEPS = 6
+
+
+def qg_use(K) -> np.ndarray:
+    """The fused QG gaps' launches by use in one step of the kernel object
+    ``K``: QG_PER_STEP where it is a QG kernel on the card, else none."""
+    plan = getattr(K, "_qg_plan", None)
+    on_card = plan is not None and plan.blocks > 0
+    return np.array(QG_PER_STEP if on_card else (0, 0, 0), dtype=np.int64)
+
+
+def qg_counts() -> np.ndarray:
+    """The fused QG gaps' launches on this process's cards so far, by use,
+    then the plain step's stages on host tensors."""
+    from niwqg_tpu_torch.ops import qg_fused as qf
+
+    c = qf.counts()
+    return np.array([c[k] for k in qf.USES + ("cpu_calls",)],
+                    dtype=np.int64)
+
+
+def qg_report(label, q_set, q_warm, q_timed, q_census, use, census=False):
+    """Hold a run's fused QG launches (``qg_counts`` arrays): ``use`` a
+    step, none at set-up, no plain chain on the card. Returns the launches
+    by use in all."""
+    q_set, q_warm, q_timed, q_census, use = (
+        np.asarray(x, dtype=np.int64)
+        for x in (q_set, q_warm, q_timed, q_census, use))
+    log(f"  fused QG gaps' launches (pack, products, stage; counted on the "
+        f"card): set-up {q_set[:3].tolist()}, {WARM_STEPS} warm-up steps "
+        f"{q_warm[:3].tolist()}, {TIMED_STEPS} timed {q_timed[:3].tolist()}"
+        + (f", census step {q_census[:3].tolist()}" if census else "")
+        + f"; {use.tolist()} a step expected")
+    check(int(sum(x[3] for x in (q_set, q_warm, q_timed, q_census))) == 0,
+          f"{label}: a QG stage on the card took the plain chain")
+    for what, got, steps in (("set-up", q_set, 0),
+                             ("warm-up", q_warm, WARM_STEPS),
+                             ("timed", q_timed, TIMED_STEPS),
+                             ("census", q_census, int(census))):
+        check(np.array_equal(got[:3], steps * use),
+              f"{label}: the fused QG gaps launched {got[:3].tolist()} in "
+              f"{steps} {what} steps, not {steps} x {use.tolist()}")
+    return (q_set + q_warm + q_timed + q_census)[:3]
+
+
+def qg_inputs(torch, K, seed, transposed=None):
+    """Random inputs of the QG gaps in the kernel object's layout: ``(ph,
+    qh, ch, gbs, fjs)``, the state's spectra (``ch`` None without the
+    scalar), and each stage's inverse batch (physical) and forward output.
+    ``transposed=None`` takes the forward outputs from the kernel object's
+    transform (on a mesh a collective: every rank calls it), so that they
+    come in its layout; ``True``/``False`` makes them column-led/row-major
+    without a transform."""
+    rng = np.random.default_rng(seed)
+    g, P = K.grid, K._qg_plan
+    ns = 2 if P.cc is not None else 1
+    (ny, wq), (rows, nx) = g.spec_shape, g.phys_shape
+
+    def real(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=K.rdtype,
+                               device=K.device)
+
+    def spec(n, cols_led=False):
+        shape = (n, wq, ny) if cols_led else (n, ny, wq)
+        z = torch.complex(real(*shape), real(*shape))
+        return z.transpose(-1, -2) if cols_led else z
+
+    gbs = [real(2 + ns, rows, nx) for _ in range(4)]
+    if transposed is None:
+        fjs = [K._fwd(real(2 * ns, rows, nx)) for _ in range(4)]
+        st = K._fwd(real(2 + ns, rows, nx))
+    else:
+        fjs = [spec(2 * ns, transposed) for _ in range(4)]
+        st = spec(2 + ns, transposed)
+    return st[0], st[1], st[2] if ns == 2 else None, gbs, fjs
+
+
+def qg_gaps(torch, K, seed, transposed=None):
+    """The fused QG gaps against their plain chain on the same CUDA
+    tensors: ``{what: gap}``. Every batch, right-hand side and ``ph`` in
+    ulps (0: bit for bit), ``again.*`` a second launch against the first
+    (0: bit for bit), each budget partial (``part.*``) in units of the
+    working type's epsilon times the sum of its terms' magnitudes over M²
+    against the float64 total of its terms. With the kernel object's
+    transform (``transposed=None``; on a mesh every rank calls it) also two
+    whole steps, fused against ``step(plain=True)`` (``step.*``: every
+    field bit for bit; ``plain.step.*``, Ke and cvar in units of epsilon
+    of their value, reported)."""
+    from niwqg_tpu_torch.ops import qg_fused as qf
+
+    P = K._qg_plan
+    ph, qh, ch, gbs, fjs = qg_inputs(torch, K, seed, transposed)
+    eps = torch.finfo(K.rdtype).eps
+    gaps = {}
+
+    def held(what, fused, plain):
+        a, b = fused(), fused()
+        gaps[f"again.{what}"] = 0.0 if torch.equal(a, b) else 1.0
+        gaps[what] = ulps(torch, a, plain())
+        return a
+
+    held("pack", lambda: qf.pack(P, ph, qh, ch),
+         lambda: qf.pack_plain(P, ph, qh, ch))
+    for n, gb in enumerate(gbs, 1):
+        held(f"products{n}", lambda: qf.products(P, gb),
+             lambda: qf.products_plain(P, gb))
+    fns, base1 = [], None
+    for n, fj in enumerate(fjs, 1):
+        kw = dict(base=base1 if n == 3 else (qh, ch),
+                  qh_q=qh if n == 3 else None,
+                  fns=((fns[0], fns[1]) if n == 3 else (fns[0], fns[2])
+                       if n == 4 else (None, None)), ph=True)
+        got = qf.stage(P, n, fj, **kw)
+        again = qf.stage(P, n, fj, **kw)
+        want = qf.stage_plain(P, n, fj, **kw)
+        for what, a, b, c in zip(("batch", "fn", "parts", "ph"), got, again,
+                                 want):
+            if c is None:
+                continue
+            gaps[f"stage{n}.again.{what}"] = (0.0 if torch.equal(a, b)
+                                              else 1.0)
+            if what != "parts":
+                gaps[f"stage{n}.{what}"] = ulps(torch, a, c)
+        if P.sums:
+            bw, fresh = want[0], 1 if n == 4 else 2
+            pair = qh if n < 3 else kw["qh_q"] if n == 3 else bw[fresh]
+            terms = qf.part_terms(P, pair, bw[fresh], want[3],
+                                  bw[-1] if ch is not None else None)
+            for j, (name, t) in enumerate(zip(qf.PARTS, terms)):
+                if t is None:
+                    continue
+                ref = t.sum().item() * P.inv_m2
+                scale = t.abs().sum().item() * P.inv_m2
+                err = abs(float(got[2][j]) - ref)
+                gaps[f"stage{n}.part.{name}"] = (err / (eps * scale)
+                                                 if scale else err)
+        fns.append(got[1])
+        if n == 1:
+            base1 = (got[0][2], got[0][3] if ch is not None else None)
+    if transposed is None:
+        s = K.zero_state()
+        rng = np.random.default_rng(seed + 1)
+        s = K.apply_set_q(s, rng.standard_normal((K.grid.nx,) * 2) * 1e-5)
+        if ch is not None:
+            s = K.apply_set_c(s, rng.standard_normal((K.grid.nx,) * 2))
+        for i in range(2):
+            a, b = K.step(s), K.step(s, plain=True)
+            for f in ("qh", "ch", "ph", "p", "q", "c", "u", "v"):
+                gaps[f"step{i}.{f}"] = ulps(torch, getattr(a, f),
+                                            getattr(b, f))
+            for f in ("Ke", "cvar"):
+                x, y = float(getattr(a, f)), float(getattr(b, f))
+                gaps[f"plain.step{i}.{f}"] = abs(x - y) / (eps * abs(y)
+                                                          or 1.0)
+            s = a
+    return gaps
+
+
+def qg_held(gaps, label):
+    """``stage_held`` on ``qg_gaps``' readings."""
+    return stage_held(gaps, label, what="every field and batch",
+                      reported="whole steps' Ke and cvar, eps of their value")
+
+
+def qg_values(K, n) -> float:
+    """Complex values of the working type each element of a spectral field
+    that QG's stage ``n`` must read and write once (0: the pack; a real
+    table is half of one): a side's two forward spectra, its start, its
+    tables and the right-hand sides it reads, the q side's qh_q at stage
+    3, the filter and wv2i; the batch and the right-hand sides it keeps."""
+    P = K._qg_plan
+    ns = 2 if P.cc is not None else 1
+    if n == 0:
+        return (1 + ns) + (2 + ns)  # ph, qh (, ch); the batch
+    reads = ns * (2 + 1 + (4 if n == 4 else 2) + (2 if n >= 3 else 0))
+    reads += (n == 3) + 0.5 * (P.filtr is not None) + 0.5
+    writes = (3 if n == 4 else 4) - (ns == 1) + (ns if n < 4 else 0)
+    return reads + writes
+
+
+def qg_record(torch, K, layout, inputs, reps=DERIVE_REPS, whole=True):
+    """Each fused QG gap of ``K`` on ``inputs`` (``qg_inputs``), ``reps``
+    launches queued behind a sleep
+    (``k2_times``) on the working stream, beside its bound (its bytes at
+    PEAK_BYTES) and its plain chain without the budget sums; where
+    ``whole``, a step fused and plain. Returns ``{kernel: [record]}``."""
+    from niwqg_tpu_torch.ops import qg_fused as qf
+
+    P = K._qg_plan
+    nosum = P._replace(sums=False)
+    ph, qh, ch, gbs, fjs = inputs
+    card = [qh.device]
+    st = qf.stage(P, 1, fjs[0], (qh, ch))
+    st2 = qf.stage(P, 2, fjs[1], (qh, ch))
+    st3 = qf.stage(P, 3, fjs[2], (st[0][2], st[0][-1] if ch is not None
+                                  else None), qh_q=qh, fns=(st[1], st2[1]))
+    args = {1: dict(base=(qh, ch)), 2: dict(base=(qh, ch)),
+            3: dict(base=(st[0][2], st[0][-1] if ch is not None else None),
+                    qh_q=qh, fns=(st[1], st2[1])),
+            4: dict(base=(qh, ch), fns=(st[1], st3[1]))}
+    size = qh.element_size()
+    gb = gbs[0]
+    # (kernel, use, fused, plain, bytes, the shape of a field it reads)
+    calls = [("qg_stage", "pack", lambda: qf.pack(P, ph, qh, ch),
+              lambda: qf.pack_plain(P, ph, qh, ch),
+              qg_values(K, 0) * qh.numel() * size, qh.shape),
+             ("qg_products", "products", lambda: qf.products(P, gb),
+              lambda: qf.products_plain(P, gb),
+              (3 * gb.shape[0] - 4) * gb[0].numel() * gb.element_size(),
+              gb[0].shape)]
+    for n in (1, 2, 3, 4):
+        calls.append(("qg_stage", f"stage {n}",
+                      lambda n=n: qf.stage(P, n, fjs[n - 1], **args[n]),
+                      lambda n=n: qf.stage_plain(nosum, n, fjs[n - 1],
+                                                 **args[n]),
+                      qg_values(K, n) * qh.numel() * size, qh.shape))
+    recs = {k: [] for k in qf.KERNELS}
+    for name, what, fused, plain, nbytes, shape in calls:
+        ms, us, _ = k2_times(torch, fused, card, reps)
+        pms = k2_times(torch, plain, card, reps)[0]
+        bound = nbytes / PEAK_BYTES * 1e3
+        log(f"  {name} ({what}) {layout} {tuple(shape)}: {ms:.4f} ms "
+            f"(bound {bound:.4f}, {100 * bound / ms:.1f}%; "
+            f"{nbytes / 1e6:.1f} MB; host {us:.1f} µs a call), plain chain "
+            f"{pms:.4f} ms (without the budget sums)")
+        recs[name].append(dict(use=what, layout=layout,
+                               shape=list(shape), ms=round(ms, 4),
+                               bound_ms=round(bound, 4),
+                               plain_ms=round(pms, 4)))
+    if whole:
+        s = K.apply_set_q(K.zero_state(),
+                          np.random.default_rng(7).standard_normal(
+                              (K.grid.nx,) * 2) * 1e-5)
+        fused = k2_times(torch, lambda: K.step(s), card, 10)[0]
+        plain = k2_times(torch, lambda: K.step(s, plain=True), card, 10)[0]
+        log(f"  a whole QG step, transforms included: {fused:.4f} ms fused, "
+            f"{plain:.4f} ms plain")
+        recs["step_ms"] = dict(fused=round(fused, 4), plain=round(plain, 4))
+    return recs
+
+
+def qg_phase(torch):
+    """Phase 14, QG: the fused stage gaps on ``qg_flagship``'s half layout
+    (f32 cuFFT, with its scalar) at NX² on one card: every kernel and two
+    whole steps against the plain chain (``qg_gaps``), each kernel timed
+    beside its bound and its plain chain; then the launches by use in
+    eager steps, captures and replays of graphs A and B, and the host
+    counter ``step.qg_fused`` (one an eager step or a capture). Returns
+    ``({kernel: [record]}, launches by use)``. (A rank's block of the
+    NX_BIG² pencil mesh: phase 13, ``mesh_qg``.)"""
+    import niwqg_tpu_torch as pkg
+    from niwqg_tpu_torch import InitialConditions as ic
+    from niwqg_tpu_torch.ops import qg_fused as qf
+    from niwqg_tpu_torch.utils import profiling
+
+    m = qg_flagship(pkg.QGModel, ic, backend="native", dtype=np.float32,
+                    tdiags=1)
+    K = m.kernel
+    qg_held(qg_gaps(torch, K, seed=22), f"phase 14: the fused QG gaps at "
+            f"{NX}² on one card")
+    recs = qg_record(torch, K, "one card", qg_inputs(torch, K, 23))
+    use = qg_use(K)
+    check(use.tolist() == list(QG_PER_STEP), "phase 14: the QG kernel "
+          "object on the card has no plan of its fused gaps")
+    total = np.zeros(3, dtype=np.int64)
+    r = m._runner
+    for label, n, diags, captures in (
+            ("graph A, its first step eager", QG_RUN_STEPS, False, 1),
+            ("one replay of A", 1, False, 0),
+            ("graph B (a sample every step), its first step eager",
+             QG_RUN_STEPS, True, 1),
+            ("one replay of B", 1, True, 0)):
+        qf.reset_counts()
+        c0 = profiling.counters().get("step.qg_fused", 0)
+        r.advance(n, diags=diags)
+        got = qg_counts()
+        hosted = profiling.counters().get("step.qg_fused", 0) - c0
+        log(f"  {label}: {n} steps, launches {got[:3].tolist()} (pack, "
+            f"products, stage), plain {got[3]}, step.qg_fused +{hosted}")
+        check(got.tolist() == (n * use).tolist() + [0], f"phase 14: QG's "
+              f"fused gaps launched {got.tolist()} in {n} steps ({label})")
+        check(hosted == (captures * 2 if n > 1 else 0), f"phase 14: "
+              f"step.qg_fused counted {hosted} host steps ({label})")
+        total += got[:3]
+    check(r.graphs, "phase 14: QG's runner did not capture")
+    del m, K
+    torch.cuda.empty_cache()
+    return recs, total
+
+
+def mesh_qg(torch, mesh, m, key, seed=19):
+    """Phase 13 on a pencil mesh rank of QG + scalar at NX_BIG² (every rank
+    calls it): the fused QG gaps against their plain chain on every rank,
+    the forward outputs in the pencil's layout (``qg_gaps``, each reading's
+    worst over the ranks); then rank 1's kernels alone timed while the
+    others wait (``qg_record``). Returns rank 0's entries, prefixed by
+    ``key``: ``qg_gaps`` and ``qg_recs`` (JSON)."""
+    K = m.kernel
+    gaps = qg_gaps(torch, K, seed)
+    every = mesh.all_gather_object(gaps)
+    worst = {k: max(g[k] for g in every) for k in gaps}
+    recs = {}
+    mesh.barrier()
+    # the inputs are made with the transform on every rank; only rank 1
+    # then times its kernels
+    inputs = qg_inputs(torch, K, seed + 1)
+    if mesh.rank == 1:
+        recs = qg_record(torch, K, f"mesh rank 1 of {mesh.nP}", inputs,
+                         whole=False)
+    mesh.barrier()
+    every = mesh.all_gather_object(recs)
+    return {f"{key}_qg_gaps": json.dumps(worst),
+            f"{key}_qg_recs": json.dumps(every[1])}
+
+
 def family_refs(torch):
     """The one-card f32 cuFFT runs phase 7's QG, UnCoupled, QL and YBJ are
     held to: their fields after WARM_STEPS steps (UnCoupled and QL with
@@ -3624,6 +3977,7 @@ def run_phases(torch, phases, full) -> int:
         mxu_mesh_phase(torch, mesh_refs(torch))
     if 14 in phases and not full:
         derive_phase(torch)
+        qg_phase(torch)
     if 13 in phases and not full:
         t13 = time.perf_counter()
         big_refs, _, _ = big_phase(torch, mm)
@@ -3801,6 +4155,7 @@ def run_phases(torch, phases, full) -> int:
     launches13, k2_big = big_mesh_phase(torch, big_refs)
     derive_mesh = k2_big.pop("derive")
     stage_mesh = k2_big.pop("stage")
+    qg_mesh = k2_big.pop("qg")
     for name, n in zip(K2_RECORDS, launches13[:2] + launches13[3:]):
         k2_recs[name]["launches"] += n
     rec["launches"] += launches13[2]  # (k)'s, rank 0
@@ -3812,6 +4167,12 @@ def run_phases(torch, phases, full) -> int:
     stage_recs = derive_recs.pop("stage_epilogue") + stage_mesh["recs"]
     for name, shapes in derive_mesh["recs"].items():
         derive_recs[name] += shapes
+    qg_recs, qg_launches = qg_phase(torch)
+    qg_recs.pop("step_ms", None)
+    qg_launches = qg_launches + qg_mesh["launches"]
+    for name, shapes in qg_mesh["recs"].items():
+        if name in qg_recs:
+            qg_recs[name] += shapes
     lap("14")
 
     order = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -3863,6 +4224,14 @@ def run_phases(torch, phases, full) -> int:
                         replaces=None,
                         launches=stage_main + stage_mesh["launches"],
                         shapes=stage_recs))
+    # the fused QG gaps: their launches in phase 14's runs and on rank 0 of
+    # phase 13's mesh runs, by use (pack, products, stage)
+    for name, uses in (("qg_products", (1,)), ("qg_stage", (0, 2))):
+        kernels.append(dict(name=name, route="cuda",
+                            source="niwqg_tpu_torch/csrc/qg_stage.cu",
+                            replaces=None,
+                            launches=int(sum(qg_launches[i] for i in uses)),
+                            shapes=qg_recs[name]))
     log(f"the sharded phases ran {NRANKS} ranks on {ncards} card(s)"
         + ("" if ncards == NRANKS else ": their times were taken with "
            "ranks sharing a card and are not multi-card times"))

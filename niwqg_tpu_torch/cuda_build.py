@@ -14,8 +14,9 @@ A module that launches the kernels of a source declares it once as a
 :class:`Family`: the library, its C signatures, the names of its launch
 counters and of its plain versions. The family binds the signatures,
 keeps the counters on each card, launches on the current stream and
-raises on a refused launch, and counts the calls its plain versions
-serve on the host.
+raises on a refused launch, counts the calls its plain versions serve on
+the host, and makes the workspace of a kernel that sums over its blocks.
+:func:`field` describes a tensor that a kernel reads in its own strides.
 """
 
 from __future__ import annotations
@@ -38,6 +39,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}
+# blocks of a summing kernel's workspace a card, per SM (such a kernel
+# takes as many blocks as fit on the card at once, at most these)
+BLOCKS_PER_SM = 16
 
 
 def sources() -> list:
@@ -114,6 +118,16 @@ def load(name: str, defines=()) -> ctypes.CDLL:
     return lib
 
 
+def field(z) -> tuple:
+    """(address, row stride, column stride) of a 2-D tensor, which a kernel
+    reads in its own strides; zeros for None."""
+    if z is None:
+        return (0, 0, 0)
+    if z.dim() != 2:
+        raise ValueError(f"a kernel's field is 2-D, not {z.dim()}-D")
+    return (z.data_ptr(),) + tuple(z.stride())
+
+
 class Family:
     """The kernels of ``csrc/<name>.cu``, as their module declares them.
 
@@ -181,6 +195,20 @@ class Family:
             err = getattr(lib, fn)(
                 *args, counter, torch.cuda.current_stream(device).cuda_stream)
         self.check(lib, err, f"{fn} launch")
+
+    def workspace(self, device, sums):
+        """``(partials, arrivals, blocks)`` on ``device`` for a kernel of
+        this family that sums over its blocks: room for ``blocks`` blocks'
+        ``sums`` partial sums (float64) and the count of blocks done
+        (int32, 0 between launches: the last block resets it). Made with
+        the kernel object and the card's launch counters, outside any
+        capture; its launches, one after another on a stream, share it."""
+        self.counters(device)
+        blocks = BLOCKS_PER_SM * torch.cuda.get_device_properties(
+            device).multi_processor_count
+        return (torch.zeros(blocks * sums, dtype=torch.float64,
+                            device=device),
+                torch.zeros(1, dtype=torch.int32, device=device), blocks)
 
     def plain_call(self, key):
         """One call served by plain version ``key`` on host tensors."""

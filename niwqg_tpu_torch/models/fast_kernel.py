@@ -321,7 +321,7 @@ class FastWaveKernel(WaveKernel):
         """The layout and physics as the stage epilogue's kernel reads
         them: the weight tables and the q side's layout."""
         g = self.grid
-        ws = (stage_fused.workspace(self.device)
+        ws = (stage_fused.FAMILY.workspace(self.device, stage_fused.N_SUMS)
               if self.device.type == "cuda" else (None, None, 0))
         return stage_fused.Plan(
             w_d=self._w_d.contiguous(), w_chi=self._w_chi.contiguous(),

@@ -33,9 +33,11 @@ from ..device import complex_dtype, real_dtype, resolve_device
 from ..etdrk4 import (build_coefs, fold_filter_into, linear_operator_c,
                       linear_operator_q)
 from ..grid import Grid
+from ..ops import qg_fused
 from ..ops.fft import make_transform
 from ..ops.spectral import mul_i
 from ..parallel.mesh import all_max, all_sum
+from ..utils.profiling import count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +134,36 @@ class QGKernel:
         # inside a step is a blocking copy from the host, and one that a
         # CUDA graph capture refuses
         self._dt = self._s(p.dt)
+        # what the fused stage gaps read; the card's launch counters and
+        # the kernels' workspace are made here, outside any capture
+        self._qg_plan = self._fused_plan()
+
+    def _fused_plan(self) -> qg_fused.Plan:
+        """The grid, tables and physics as the fused stage gaps read them
+        (``ops/qg_fused.py``)."""
+        g, p = self.grid, self.params
+        ws = (qg_fused.FAMILY.workspace(self.device, len(qg_fused.PARTS))
+              if self.device.type == "cuda" else (None, None, 0))
+
+        def f64(a):
+            return torch.as_tensor(np.ascontiguousarray(a, np.float64),
+                                   device=self.device)
+
+        def rows(c):
+            return None if c is None else type(c)(*[t.contiguous()
+                                                    for t in c])
+
+        return qg_fused.Plan(
+            k=g.k[0].contiguous(), l=g.l[:, 0].contiguous(),
+            kd=f64(g.spec_np(g.k_np)[0]), ld=f64(g.l_np[:, 0]),
+            wv2i=g.wv2i.contiguous(),
+            filtr=None if self.fold_filter else g.filtr.contiguous(),
+            cq=rows(self.coefs_q), cc=rows(self.coefs_c),
+            col0=0 if g.mesh is None else g.mesh.block(g.nk).start,
+            nx=g.nx, nreal=g.nx // 2 + 1, owner=g.owns_mean_mode,
+            sums=bool(p.spectral_budgets), nu4=float(p.nu4), mu=float(p.mu),
+            nu=float(p.nu), inv_m2=1.0 / float(g.M) ** 2, partials=ws[0],
+            arrivals=ws[1], blocks=ws[2])
 
     def _s(self, x) -> torch.Tensor:
         """A 0-d tensor of a Python number (construction only)."""
@@ -255,8 +287,11 @@ class QGKernel:
     def _stage_rhs(self, ph, qh, ch: Optional[torch.Tensor]):
         """One stage's nonlinear terms: ``u``, ``v``, ``q`` (and ``c``) in
         one batched inverse, the Jacobian products in one batched
-        forward."""
+        forward (the plain step's; on host tensors counted as a stage the
+        fused kernels' plain version served)."""
         g = self.grid
+        if ph.device.type == "cpu":
+            qg_fused.FAMILY.plain_call("stage")
         specs = [mul_i(ph, -g.l), mul_i(ph, g.k), qh]
         if ch is not None:
             specs.append(ch)
@@ -275,7 +310,17 @@ class QGKernel:
     def _mulf(x, f):
         return x if f is None else x * f
 
-    def step(self, s: QGState) -> QGState:
+    def step(self, s: QGState, plain=None) -> QGState:
+        """One ETDRK4 step. On the card each gap between the stages'
+        transforms is one kernel of ``ops/qg_fused.py``
+        (:meth:`_step_fused`); on host tensors the plain chain below
+        (``plain``, by default, is whether the tensors are the host's;
+        ``plain=True`` on the card is the oracle the kernels are held
+        to)."""
+        if plain is None:
+            plain = s.qh.device.type == "cpu"
+        if not plain:
+            return self._step_fused(s)
         pr = self.params
         cq, cc = self.coefs_q, self.coefs_c
         flt = None if self.fold_filter else self.grid.filtr
@@ -342,6 +387,68 @@ class QGKernel:
         Ke = s.Ke + dt * (k1 + 2.0 * (k2 + k3) + k4) / 6.0
         return QGState(t=s.t + dt, tc=s.tc + 1, qh=qh, ch=ch, ph=ph, p=p,
                        q=q, c=cphys, u=u, v=v, Ke=Ke, cvar=cvar)
+
+    def _step_fused(self, s: QGState) -> QGState:
+        """:meth:`step` on the card: stage 1's batch packed from the
+        state, then a stage is its batched inverse, ``qg_fused.products``,
+        its batched forward and ``qg_fused.stage`` (the Jacobian, the
+        update, the inversion, the budget partials and the next inverse's
+        batch). Bit for bit the plain chain's fields; the budgets sum the
+        same terms in another order."""
+        count("step.qg_fused")
+        pr, P, dt = self.params, self._qg_plan, self._dt
+        scalar, spectral = pr.passive_scalar, pr.spectral_budgets
+        ch0 = s.ch if scalar else None
+        batch = qg_fused.pack(P, s.ph, s.qh, ch0)
+        ks, cs, fns, base1 = [], [], [], None
+        for n in (1, 2, 3, 4):
+            gb = self._bwd(batch)
+            fj = self._fwd(qg_fused.products(P, gb))
+            batch, fn, parts, ph = qg_fused.stage(
+                P, n, fj, base1 if n == 3 else (s.qh, ch0),
+                qh_q=s.qh if n == 3 else None,
+                fns=((fns[0], fns[1]) if n == 3 else (fns[0], fns[2])
+                     if n == 4 else (None, None)),
+                ph=not spectral)
+            fns.append(fn)
+            # the batch: [-il ph, ik ph, qh (, ch)], stage 4 [ph, qh (, ch)]
+            qh = batch[1] if n == 4 else batch[2]
+            ch = batch[-1] if scalar else s.ch
+            if n == 1:  # stage 3's start
+                base1 = (qh, ch if scalar else None)
+            if scalar:
+                cs.append(self._c_source(parts) if spectral
+                          else self.ep_c_stage(ch))
+            if n < 4:
+                ks.append(self._psi_source(parts) if spectral else
+                          self.ep_psi(s.q, self._bwd(ph), qh, ph,
+                                      qh_q=s.qh))
+        u, v = gb[0], gb[1]
+        # the final inverse: stage 4's batch [ph, qh (, ch)]
+        fb = self._bwd(batch)
+        p, q = fb[0], fb[1]
+        cphys = fb[2] if scalar else s.c
+        ks.append(self._psi_source(parts) if spectral
+                  else self.ep_psi(q, p, qh, ph))
+        k1, k2, k3, k4 = ks
+        Ke = s.Ke + dt * (k1 + 2.0 * (k2 + k3) + k4) / 6.0
+        cvar = s.cvar
+        if scalar:
+            c1, c2, c3, c4 = cs
+            cvar = s.cvar + dt * (c1 + 2.0 * (c2 + c3) + c4) / 6.0
+        return QGState(t=s.t + dt, tc=s.tc + 1, qh=qh, ch=ch, ph=ph, p=p,
+                       q=q, c=cphys, u=u, v=v, Ke=Ke, cvar=cvar)
+
+    def _c_source(self, parts):
+        """:meth:`ep_c_stage` from a stage's budget partials."""
+        return self.ep_c(*(all_sum(parts[i], self.mesh) for i in range(3)))
+
+    def _psi_source(self, parts):
+        """:meth:`ep_psi` from a stage's budget partials."""
+        s = all_sum(parts[3], self.mesh)
+        if self.params.nu:
+            s = s + self.params.nu * all_sum(parts[4], self.mesh)
+        return s
 
     # -- initialization ------------------------------------------------------
     def zero_state(self) -> QGState:

@@ -31,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..cuda_build import Family
+from ..cuda_build import Family, field
 from .derive_fused import QLayout
 
 KERNELS = ("stage_epilogue",)
@@ -47,9 +47,6 @@ counts, reset_counts = FAMILY.counts, FAMILY.reset
 # the budget partials: seven weighted sums, then four mean-mode entries
 N_PARTS = 11
 N_SUMS = 7
-# blocks of the workspace a card, per SM (the kernel takes as many blocks
-# as fit on the card at once, at most these)
-BLOCKS_PER_SM = 16
 
 
 class Plan(NamedTuple):
@@ -64,32 +61,9 @@ class Plan(NamedTuple):
     owner: bool            # this rank holds the (0,0) mode
     inv_m: float           # 1/M, rounded as the working type rounds it
     inv_m2: float          # 1/M²
-    partials: object       # the kernel object's workspace (:func:`workspace`)
+    partials: object       # the workspace (``FAMILY.workspace``)
     arrivals: object
     blocks: int
-
-
-def workspace(device):
-    """A kernel object's ``(partials, arrivals, blocks)`` on ``device``:
-    room for ``blocks`` blocks' partial sums (float64) and the count of
-    blocks done (int32, 0 between launches: the last block resets it).
-    Made with the kernel object and the card's launch counters, outside any
-    capture (the counters' guard refuses one); its launches, one after
-    another on a stream, share it."""
-    FAMILY.counters(device)
-    blocks = BLOCKS_PER_SM * torch.cuda.get_device_properties(
-        device).multi_processor_count
-    return (torch.zeros(blocks * N_SUMS, dtype=torch.float64, device=device),
-            torch.zeros(1, dtype=torch.int32, device=device), blocks)
-
-
-def _field(z):
-    """(address, row stride, column stride) of a 2-D field, or zeros."""
-    if z is None:
-        return (0, 0, 0)
-    if z.dim() != 2:
-        raise ValueError(f"a field of the epilogue is 2-D, not {z.dim()}-D")
-    return (z.data_ptr(),) + tuple(z.stride())
 
 
 def epilogue(plan: Plan, rh, jadv=None, jh=None, phih=None, uvqh=None,
@@ -127,7 +101,7 @@ def epilogue(plan: Plan, rh, jadv=None, jh=None, phih=None, uvqh=None,
                              f"{cd} on {dev}")
     fields = (ctypes.c_longlong * 24)(*[
         v for z in (phih, jadv if rhs else None, jh, rh, uq, vq, qh, ph)
-        for v in _field(z)])
+        for v in field(z)])
     FAMILY.launch(
         "stage_epilogue", dev, fields, plan.w_d, plan.w_chi, plan.wv2,
         plan.w_eppsi, q.kq, q.l, fnw, fn, parts, plan.partials,

@@ -1,8 +1,9 @@
 """The launch-and-count helper of the port's hand-written kernels
 (``niwqg_tpu_torch/cuda_build.py``'s ``Family``), as each family declares
 it: K1 (``ops/csplit_mm.py``), K2 (``parallel/a2a.py``), the fused derive
-(``ops/derive_fused.py``) and the fused stage epilogue
-(``ops/stage_fused.py``).
+(``ops/derive_fused.py``), the fused stage epilogue
+(``ops/stage_fused.py``) and the QG model's fused stage gaps
+(``ops/qg_fused.py``).
 
 On a host without a card each module's ``counts()`` returns its keys, all
 0; one call of a plain version moves ``cpu_calls`` (and the family's count
@@ -16,7 +17,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import niwqg_tpu_torch as pkg  # noqa: E402
-from niwqg_tpu_torch.ops import csplit_mm, derive_fused, stage_fused  # noqa: E402,E501
+from niwqg_tpu_torch.ops import csplit_mm, derive_fused, qg_fused  # noqa: E402,E501
+from niwqg_tpu_torch.ops import stage_fused  # noqa: E402
 from niwqg_tpu_torch.parallel import a2a  # noqa: E402
 
 
@@ -58,6 +60,16 @@ def _stage(K, qh, phih):
     return call
 
 
+def _qg():
+    K = pkg.QGModel.Model(nx=16, passive_scalar=True, device="cpu").kernel
+    s = K.zero_state()
+
+    def call():
+        K._stage_rhs(s.ph, s.qh, s.ch)
+        return "stage"
+    return call
+
+
 FAMILIES = {
     "k1": (csplit_mm, lambda: _k1,
            {"launches", "launches_tc", "launches_f32"}),
@@ -68,6 +80,7 @@ FAMILIES = {
                set(derive_fused.KERNELS)),
     "stage": (stage_fused, lambda: _stage(*_kernel()),
               set(stage_fused.USES)),
+    "qg": (qg_fused, _qg, set(qg_fused.USES)),
 }
 
 
