@@ -37,6 +37,7 @@ from ..ops.derive_fused import QLayout, q_layout
 from ..ops.fft import make_transform
 from ..ops.spectral import abs2, jmul
 from ..parallel.mesh import all_sum
+from ..utils.profiling import count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,7 +308,11 @@ class WaveKernel:
 
     def stage_source_parts(self, qh, phih, D: Derived) -> torch.Tensor:
         """This rank's partial sums of :meth:`stage_sources`, evaluated in
-        physical space."""
+        physical space (six more transforms); counted
+        ``diag.field_sources`` from the host: a YBJ diagnostics sample, and
+        on the host's faithful kernel also each stage's sources (the fast
+        kernel has its own)."""
+        count("diag.field_sources")
         g, tr = self.grid, self.tr
         lapphi = tr.ifft2(phih * (-g.wv2))
         lap2phi = tr.ifft2(phih * g.wv4)

@@ -24,6 +24,7 @@ import torch
 from ..etdrk4 import fold_filter_into
 from ..ops import spectral
 from ..ops.spectral import jmul, mul_i
+from ..utils.profiling import count
 from .kernel import Derived, KernelParams, WaveKernel, WavePhysics, WaveState
 
 
@@ -77,6 +78,9 @@ class YBJKernel(WaveKernel):
         return -nl[0] - jmul(nl[1], 0.5)
 
     def step(self, s: WaveState) -> WaveState:
+        """One ETDRK4 step of ``phih``; counted ``step.ybj`` from the
+        host (eager steps and captures: a replay runs no host code)."""
+        count("step.ybj")
         cw = self.coefs_w
         flt = None if self.fold_filter else self.grid.filtr
         mulf = self._mulf

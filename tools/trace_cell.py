@@ -21,10 +21,13 @@ idle stretch (``portbench/spans.py``), with the run loop's share
 (``shell.*`` and ``runner.*``) in ms a step; and the fused derive's counter
 ``step.derive_fused`` beside four times the eager steps and captures
 (``runner.first_step``, ``runner.capture``), which it exceeds by set_q's
-inversion on the half layout. The spans are read after the
-traced yields. Exits as ``run.py`` does. A stopgap: once the harness
-carries each rank's spans in its record, its readers print these numbers
-and this tool goes (PERF.md, Open questions).
+inversion on the half layout; and the YBJ stepper's counter ``step.ybj``
+beside those eager steps and captures, one each (the physical-space
+budget samples, ``diag.field_sources``, are among the counters). The
+spans are read after the traced yields. Exits as ``run.py`` does. A
+stopgap: once the harness carries each rank's spans in its record, its
+readers print these numbers and this tool goes (PERF.md, Open
+questions).
 """
 
 import argparse
@@ -90,12 +93,15 @@ def rank_line(r: dict) -> dict:
                 for k in ("runner.first_step", "runner.capture"))
     derive = {"counted": sp["counters"].get("step.derive_fused", 0),
               "four_per_eager_step_and_capture": 4 * steps}
+    ybj = {"counted": sp["counters"].get("step.ybj", 0),
+           "one_per_eager_step_and_capture": steps}
     return {"rank": r["rank"],
             "setup_parts_s": r["counters"]["setup_parts_s"],
             "program_setup_s": split, "idle_by_span_s": idle,
             "loop_idle_ms": S.loop_idle_ms(dict(t, idle_by_span=idle)),
             "loop_spans": loop, "totals": tot, "counters": sp["counters"],
-            "derive_fused": derive, "dropped": sp["dropped"]}
+            "derive_fused": derive, "ybj_steps": ybj,
+            "dropped": sp["dropped"]}
 
 
 def main(argv=None) -> int:
