@@ -238,7 +238,15 @@ Phases (any failure exits non-zero):
      replays of graphs A and B. Phase 13 checks them on every rank of QG +
      scalar at 4096² and times rank 1's (4096, 513) block (``mesh_qg``);
      every ``_runs_on_mesh`` run holds their launches to ``qg_use`` a step
-     (``qg_report``).
+     (``qg_report``). Last, the YBJ model's fused stage gaps
+     (``csrc/ybj_stage.cu``, ``niwqg_tpu_torch/ops/ybj_fused.py``) at
+     NX² on one card (``ybj_phase``): every batch, right-hand side and
+     ``phih`` of the pack, the products and stages 1-4, and two whole
+     steps' YBJ_FIELDS, bit for bit the plain chain (``ybj_gaps``); each
+     use timed beside its bound and its plain chain, and a whole step
+     fused and plain; the launches by use (YBJ_PER_STEP a step) and
+     ``step.ybj_fused`` beside ``step.ybj`` in eager steps, captures and
+     replays of graphs A and B.
 
 Every ``run_steps``, ``run`` and ``run_with_snapshots`` above replays
 the step's CUDA graphs (``niwqg_tpu_torch/graphs.py``), on one card, on
@@ -3859,6 +3867,258 @@ def mesh_qg(torch, mesh, m, key, seed=19):
             f"{key}_qg_recs": json.dumps(every[1])}
 
 
+# -- the YBJ model's fused stage gaps (csrc/ybj_stage.cu, ops/ybj_fused.py) ---
+
+# YBJ's launches a step on one card, by use (ybj_fused.USES): one pack, and
+# a products and a stage launch each ETDRK4 stage
+YBJ_PER_STEP = (1, 4, 4)
+# phase 14: steps of each kind the YBJ launches are pinned over
+YBJ_RUN_STEPS = 6
+# the whole step's fields a fused step is held to, bit for bit
+YBJ_FIELDS = ("phih", "phi", "phix", "phiy")
+
+
+def ybj_use(K) -> np.ndarray:
+    """The fused YBJ gaps' launches by use in one step of the kernel
+    object ``K``: YBJ_PER_STEP where it is a YBJ kernel of one card, else
+    none."""
+    from niwqg_tpu_torch.ops import ybj_fused as yf
+
+    on = (getattr(K, "_ybj_plan", None) is not None
+          and yf.engages(K.device, K.mesh))
+    return np.array(YBJ_PER_STEP if on else (0, 0, 0), dtype=np.int64)
+
+
+def ybj_counts() -> np.ndarray:
+    """The fused YBJ gaps' launches on this process's cards so far, by
+    use, then the plain step's stages on host tensors."""
+    from niwqg_tpu_torch.ops import ybj_fused as yf
+
+    c = yf.counts()
+    return np.array([c[k] for k in yf.USES + ("cpu_calls",)],
+                    dtype=np.int64)
+
+
+def ybj_inputs(torch, K, seed):
+    """Random inputs of the YBJ gaps in the kernel object's layout:
+    ``(phih, flow, gbs, nls)``, the state's spectrum, the frozen flow
+    ``(phi, u, v, q_psi)`` (``phi`` the step-start's), each stage's inverse
+    batch (``[phix, phiy]``, or ``[phi, phix, phiy]`` where the refraction
+    reads the stage's own phi) and forward output ``(2, ny, nx)``."""
+    rng = np.random.default_rng(seed)
+    shape = K.grid.spec_shape
+
+    def real(*s):
+        return torch.as_tensor(rng.standard_normal(s), dtype=K.rdtype,
+                               device=K.device)
+
+    def cplx(*s):
+        return torch.complex(real(*s), real(*s))
+
+    width = 2 if K.faithful_quirks else 3
+    flow = (cplx(*shape), real(*shape), real(*shape), real(*shape))
+    gbs = [cplx(width, *shape) for _ in range(4)]
+    nls = [cplx(2, *shape) for _ in range(4)]
+    return cplx(*shape), flow, gbs, nls
+
+
+def _ybj_stage_args(n, phih, fns, phih1):
+    """Stage ``n``'s base and right-hand sides as ``_step_fused`` chains
+    them."""
+    return dict(base=phih1 if n == 3 else phih,
+                fns=((fns[0], fns[1]) if n == 3 else (fns[0], fns[2])
+                     if n == 4 else (None, None)))
+
+
+def ybj_gaps(torch, K, seed):
+    """The fused YBJ gaps against their plain chain on the same CUDA
+    tensors: ``{what: gap}`` in ulps (0: bit for bit). Every batch,
+    right-hand side and ``phih`` of the pack, the products and stages 1-4,
+    ``again.*`` a second launch against the first; then two whole steps,
+    fused against ``step(plain=True)`` (``step*.``: YBJ_FIELDS)."""
+    from niwqg_tpu_torch.ops import ybj_fused as yf
+
+    P = K._ybj_plan
+    phih, (phi, u, v, q), gbs, nls = ybj_inputs(torch, K, seed)
+    gaps = {}
+
+    def held(what, fused, plain):
+        a, b = fused(), fused()
+        gaps[f"again.{what}"] = 0.0 if torch.equal(a, b) else 1.0
+        gaps[what] = ulps(torch, a, plain())
+
+    held("pack", lambda: yf.pack(P, phih), lambda: yf.pack_plain(P, phih))
+    for n, gb in enumerate(gbs, 1):
+        f = gb[0] if gb.shape[0] == 3 else phi
+        args = (gb[-2], gb[-1], f, u, v, q)
+        held(f"products{n}", lambda: yf.products(P, *args),
+             lambda: yf.products_plain(P, *args))
+    fns, phih1 = [], None
+    for n, nl in enumerate(nls, 1):
+        kw = _ybj_stage_args(n, phih, fns, phih1)
+        got = yf.stage(P, n, nl, **kw)
+        again = yf.stage(P, n, nl, **kw)
+        want = yf.stage_plain(P, n, nl, **kw)
+        for what, a, b, c in zip(("batch", "fn", "phih"), got, again, want):
+            if c is None:
+                continue
+            gaps[f"stage{n}.again.{what}"] = 0.0 if torch.equal(a, b) else 1.0
+            gaps[f"stage{n}.{what}"] = ulps(torch, a, c)
+        fns.append(got[1])
+        if n == 1:
+            phih1 = got[2]
+    s = K.zero_state()
+    rng = np.random.default_rng(seed + 1)
+    nx = K.grid.nx
+    s = K.apply_set_q(s, rng.standard_normal((nx, nx)) * 1e-5)
+    s = K.apply_set_phi(s, rng.standard_normal((nx, nx))
+                        + 1j * rng.standard_normal((nx, nx)))
+    for i in range(2):
+        a, b = K.step(s), K.step(s, plain=True)
+        for f in YBJ_FIELDS:
+            x, y = ((getattr(z, f) if f == "phih" else getattr(z.d, f))
+                    for z in (a, b))
+            gaps[f"step{i}.{f}"] = ulps(torch, x, y)
+        s = a
+    return gaps
+
+
+def ybj_held(gaps, label):
+    """``ybj_gaps``' readings: every one 0 (bit for bit)."""
+    return stage_held(gaps, label, what="every field and batch",
+                      reported="nothing")
+
+
+def ybj_values(K, n) -> float:
+    """Complex values of the working type each element of a field that
+    YBJ's stage ``n`` must read and write once (0: the pack; -1: the
+    products; a real field is half of one): the two forward spectra, the
+    start, the tables and the right-hand sides it reads, the filter; the
+    batch, the right-hand side it keeps and stage 1's phih."""
+    P = K._ybj_plan
+    full = 3 if not P.faithful else 2
+    if n == -1:
+        return 3 + 1.5 + 2      # phix, phiy, phi, u, v, q_psi; the batch
+    if n == 0:
+        return 1 + full
+    reads = 2 + 1 + (4 if n == 4 else 2) + (2 if n >= 3 else 0)
+    reads += 0.5 * (P.filtr is not None)
+    writes = (3 if n == 4 else full) + (n <= 3) + (n == 1 and P.faithful)
+    return reads + writes
+
+
+def ybj_record(torch, K, inputs, reps=DERIVE_REPS):
+    """Each fused YBJ gap of ``K`` on ``inputs`` (``ybj_inputs``), ``reps``
+    launches queued behind a sleep (``k2_times``) on the working stream,
+    beside its bound (its bytes at PEAK_BYTES) and its plain chain; then a
+    whole step fused and plain. Returns ``{kernel: [record]}`` and
+    ``step_ms``."""
+    from niwqg_tpu_torch.ops import ybj_fused as yf
+
+    P = K._ybj_plan
+    phih, (phi, u, v, q), gbs, nls = inputs
+    card = [phih.device]
+    fns, phih1, args = [], None, {}
+    for n, nl in enumerate(nls, 1):
+        args[n] = _ybj_stage_args(n, phih, fns, phih1)
+        _, fn, ph = yf.stage(P, n, nl, **args[n])
+        fns.append(fn)
+        if n == 1:
+            phih1 = ph
+    size = phih.element_size()
+    gb = gbs[0]
+    f = gb[0] if gb.shape[0] == 3 else phi
+    pargs = (gb[-2], gb[-1], f, u, v, q)
+    # (kernel, use, fused, plain, values an element)
+    calls = [("ybj_stage", "pack", lambda: yf.pack(P, phih),
+              lambda: yf.pack_plain(P, phih), ybj_values(K, 0)),
+             ("ybj_products", "products", lambda: yf.products(P, *pargs),
+              lambda: yf.products_plain(P, *pargs), ybj_values(K, -1))]
+    for n in (1, 2, 3, 4):
+        calls.append(("ybj_stage", f"stage {n}",
+                      lambda n=n: yf.stage(P, n, nls[n - 1], **args[n]),
+                      lambda n=n: yf.stage_plain(P, n, nls[n - 1], **args[n]),
+                      ybj_values(K, n)))
+    recs = {k: [] for k in yf.KERNELS}
+    for name, what, fused, plain, values in calls:
+        nbytes = values * phih.numel() * size
+        ms, us, _ = k2_times(torch, fused, card, reps)
+        pms = k2_times(torch, plain, card, reps)[0]
+        bound = nbytes / PEAK_BYTES * 1e3
+        log(f"  {name} ({what}) {tuple(phih.shape)}: {ms:.4f} ms (bound "
+            f"{bound:.4f}, {100 * bound / ms:.1f}%; {nbytes / 1e6:.1f} MB; "
+            f"host {us:.1f} µs a call), plain chain {pms:.4f} ms")
+        recs[name].append(dict(use=what, layout="one card",
+                               shape=list(phih.shape), ms=round(ms, 4),
+                               bound_ms=round(bound, 4),
+                               plain_ms=round(pms, 4)))
+    s = K.apply_set_q(K.zero_state(), np.random.default_rng(7)
+                      .standard_normal((K.grid.nx,) * 2) * 1e-5)
+    fused = k2_times(torch, lambda: K.step(s), card, 10)[0]
+    plain = k2_times(torch, lambda: K.step(s, plain=True), card, 10)[0]
+    log(f"  a whole YBJ step, transforms included: {fused:.4f} ms fused, "
+        f"{plain:.4f} ms plain")
+    recs["step_ms"] = dict(fused=round(fused, 4), plain=round(plain, 4))
+    return recs
+
+
+def ybj_phase(torch):
+    """Phase 14, YBJ: the fused stage gaps of the YBJ model (the flagship's
+    physics with its wave packet, f32 cuFFT, ``faithful_quirks``) at NX² on
+    one card: every kernel and two whole steps against the plain chain
+    (``ybj_gaps``), each kernel timed beside its bound and its plain chain;
+    then the launches by use in eager steps, captures and replays of graphs
+    A and B, and the host counters ``step.ybj_fused`` and ``step.ybj`` (one
+    each an eager step or a capture). Returns ``({kernel: [record]},
+    launches by use)``."""
+    import niwqg_tpu_torch as pkg
+    from niwqg_tpu_torch import InitialConditions as ic
+    from niwqg_tpu_torch.ops import ybj_fused as yf
+    from niwqg_tpu_torch.utils import profiling
+
+    m = build_model(pkg, ic, "YBJModel", backend="native", dtype=np.float32,
+                    tdiags=1)
+    K = m.kernel
+    check(K.faithful_quirks, "phase 14: YBJ's default is faithful_quirks")
+    ybj_held(ybj_gaps(torch, K, seed=24), f"phase 14: the fused YBJ gaps at "
+             f"{NX}² on one card")
+    recs = ybj_record(torch, K, ybj_inputs(torch, K, 25))
+    use = ybj_use(K)
+    check(use.tolist() == list(YBJ_PER_STEP), "phase 14: the YBJ kernel "
+          "object on one card does not take its fused gaps")
+    d = m.state.d
+    check(d.u.is_contiguous() and d.v.is_contiguous()
+          and d.q_psi.is_contiguous(), "phase 14: YBJ's frozen flow is not "
+          "row-major: the fused products would copy it every stage")
+    total = np.zeros(3, dtype=np.int64)
+    r = m._runner
+    for label, n, diags, captures in (
+            ("graph A, its first step eager", YBJ_RUN_STEPS, False, 1),
+            ("one replay of A", 1, False, 0),
+            ("graph B (a sample every step), its first step eager",
+             YBJ_RUN_STEPS, True, 1),
+            ("one replay of B", 1, True, 0)):
+        yf.reset_counts()
+        c0 = {k: profiling.counters().get(k, 0)
+              for k in ("step.ybj_fused", "step.ybj")}
+        r.advance(n, diags=diags)
+        got = ybj_counts()
+        hosted = {k: profiling.counters().get(k, 0) - v
+                  for k, v in c0.items()}
+        log(f"  {label}: {n} steps, launches {got[:3].tolist()} (pack, "
+            f"products, stage), plain {got[3]}, host counters {hosted}")
+        check(got.tolist() == (n * use).tolist() + [0], f"phase 14: YBJ's "
+              f"fused gaps launched {got.tolist()} in {n} steps ({label})")
+        want = captures * 2 if n > 1 else 0
+        check(hosted == {"step.ybj_fused": want, "step.ybj": want},
+              f"phase 14: the host counted {hosted} YBJ steps ({label})")
+        total += got[:3]
+    check(r.graphs, "phase 14: YBJ's runner did not capture")
+    del m, K
+    torch.cuda.empty_cache()
+    return recs, total
+
+
 def family_refs(torch):
     """The one-card f32 cuFFT runs phase 7's QG, UnCoupled, QL and YBJ are
     held to: their fields after WARM_STEPS steps (UnCoupled and QL with
@@ -3978,6 +4238,7 @@ def run_phases(torch, phases, full) -> int:
     if 14 in phases and not full:
         derive_phase(torch)
         qg_phase(torch)
+        ybj_phase(torch)
     if 13 in phases and not full:
         t13 = time.perf_counter()
         big_refs, _, _ = big_phase(torch, mm)
@@ -4173,6 +4434,8 @@ def run_phases(torch, phases, full) -> int:
     for name, shapes in qg_mesh["recs"].items():
         if name in qg_recs:
             qg_recs[name] += shapes
+    ybj_recs, ybj_launches = ybj_phase(torch)
+    ybj_recs.pop("step_ms", None)
     lap("14")
 
     order = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -4232,6 +4495,14 @@ def run_phases(torch, phases, full) -> int:
                             replaces=None,
                             launches=int(sum(qg_launches[i] for i in uses)),
                             shapes=qg_recs[name]))
+    # the fused YBJ gaps: their launches in phase 14's runs, by use (pack,
+    # products, stage)
+    for name, uses in (("ybj_products", (1,)), ("ybj_stage", (0, 2))):
+        kernels.append(dict(name=name, route="cuda",
+                            source="niwqg_tpu_torch/csrc/ybj_stage.cu",
+                            replaces=None,
+                            launches=int(sum(ybj_launches[i] for i in uses)),
+                            shapes=ybj_recs[name]))
     log(f"the sharded phases ran {NRANKS} ranks on {ncards} card(s)"
         + ("" if ncards == NRANKS else ": their times were taken with "
            "ranks sharing a card and are not multi-card times"))

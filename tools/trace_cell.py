@@ -21,9 +21,10 @@ idle stretch (``portbench/spans.py``), with the run loop's share
 (``shell.*`` and ``runner.*``) in ms a step; and the fused derive's counter
 ``step.derive_fused`` beside four times the eager steps and captures
 (``runner.first_step``, ``runner.capture``), which it exceeds by set_q's
-inversion on the half layout; and the YBJ stepper's counter ``step.ybj``
-beside those eager steps and captures, one each (the physical-space
-budget samples, ``diag.field_sources``, are among the counters). The
+inversion on the half layout; and the YBJ stepper's counters ``step.ybj``
+and ``step.ybj_fused`` (its fused step, one card's CUDA tensors) beside
+those eager steps and captures, one each (the physical-space budget
+samples, ``diag.field_sources``, are among the counters). The
 spans are read after the traced yields. Exits as ``run.py`` does. A
 stopgap: once the harness carries each rank's spans in its record, its
 readers print these numbers and this tool goes (PERF.md, Open
@@ -94,6 +95,7 @@ def rank_line(r: dict) -> dict:
     derive = {"counted": sp["counters"].get("step.derive_fused", 0),
               "four_per_eager_step_and_capture": 4 * steps}
     ybj = {"counted": sp["counters"].get("step.ybj", 0),
+           "fused": sp["counters"].get("step.ybj_fused", 0),
            "one_per_eager_step_and_capture": steps}
     return {"rank": r["rank"],
             "setup_parts_s": r["counters"]["setup_parts_s"],
